@@ -98,7 +98,9 @@ def build_program(args):
         combine=getattr(args, "combine", "neighbour"),
     )
     cfg = ClassifyConfig(preprocess=pre, calling=calling,
-                         dual_model=end_model is not None)
+                         dual_model=end_model is not None,
+                         kernel_path="fused" if getattr(args, "pallas", False)
+                         else "unit")
     program = ClassifyProgram(model, cfg, end_model=end_model, device=device)
     log(f"  device: {program.device}")
     return program, net_cfg

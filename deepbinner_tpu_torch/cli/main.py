@@ -8,8 +8,10 @@ differences in `classify` and `realtime`:
   JAX CLI goes by ``JAX_PLATFORMS``; without a card, ``cuda`` is an error;
 - the flags of parts not ported yet are gone: ``--reader_processes`` and
   ``--shm_slots`` (the shared-memory reader pool), ``--native_reader`` /
-  ``--no_native_reader`` (the C++ fast5 reader), ``--pallas`` (the port
-  always runs its CUDA kernels) and ``--profile_dir``;
+  ``--no_native_reader`` (the C++ fast5 reader) and ``--profile_dir``;
+- ``--pallas`` runs the trunk after stem1 as one launch of the CUDA
+  megakernel per batch, as the JAX CLI's ``--pallas`` runs the Pallas
+  megakernel; without it every unit is one launch of the unit kernel;
 - ``--device_count`` above 1 is an error (one device per process for now).
 
 Only `classify` runs; every other subcommand exits non-zero with
@@ -102,6 +104,10 @@ def _add_classify_common(parser: argparse.ArgumentParser) -> None:
                            "per-window z-score on the device erases the "
                            "scale. int16: lossless raw DAC samples. int4: "
                            "sigma/3.5 nibbles packed 2/byte")
+    perf.add_argument("--pallas", action="store_true",
+                      help="Run the conv trunk after stem1 as one launch of "
+                           "the CUDA megakernel per batch (default: one "
+                           "launch of the unit kernel per ConvBNReLU unit)")
     perf.add_argument("--device_trim", action="store_true",
                       help="Run open-pore trimming on the device instead "
                            "of in the reader threads (same math)")

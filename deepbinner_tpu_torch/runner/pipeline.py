@@ -4,9 +4,10 @@ Counterpart of ``deepbinner_tpu/runner/pipeline.py``.  PyTorch runs eagerly,
 so there is no compile step: :class:`ClassifyProgram` folds each model's
 BatchNorm and puts its weights on the device once, then every batch is a
 sequence of launches on the current stream.  On a CUDA device the CNN
-always runs the kernel composition
-(:func:`~deepbinner_tpu_torch.models.kernel_apply.apply_inference_kernels`);
-on the CPU the same composition runs each unit's plain version.
+runs one of the kernel compositions of
+:mod:`~deepbinner_tpu_torch.models.kernel_apply`, chosen by
+``ClassifyConfig.kernel_path``; on the CPU the same composition runs each
+kernel's plain version.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from deepbinner_tpu_torch import resolve_device
 from deepbinner_tpu_torch.models.kernel_apply import (
     FoldedNet,
     apply_inference_kernels,
+    apply_inference_kernels_fused,
+    apply_inference_kernels_split3,
     fold_network,
 )
 from deepbinner_tpu_torch.models.network import DemuxNet
@@ -50,6 +53,27 @@ class ClassifyConfig:
     preprocess: PreprocessConfig = PreprocessConfig()
     calling: CallingConfig = CallingConfig()
     dual_model: bool = False
+    # The CNN composition; the JAX package's use_pallas / pallas_fused /
+    # pallas_path map onto it as:
+    #   "unit"   one unit-kernel launch per ConvBNReLU unit (JAX: the flax
+    #            graph without --pallas, or pallas_path="unit");
+    #   "fused"  stem1, then the whole trunk in one megakernel launch (JAX:
+    #            use_pallas with pallas_fused, what `classify --pallas` runs);
+    #   "split3" stem1, then three megakernel launches (JAX: pallas_path=
+    #            "split3").
+    kernel_path: str = "unit"
+
+    def __post_init__(self) -> None:
+        if self.kernel_path not in KERNEL_PATHS:
+            raise ValueError(f"unknown kernel_path {self.kernel_path!r}; one "
+                             f"of {sorted(KERNEL_PATHS)}")
+
+
+KERNEL_PATHS = {
+    "unit": apply_inference_kernels,
+    "fused": apply_inference_kernels_fused,
+    "split3": apply_inference_kernels_split3,
+}
 
 
 def _one_end_probs(net: FoldedNet, cfg: ClassifyConfig, signal: torch.Tensor,
@@ -57,7 +81,8 @@ def _one_end_probs(net: FoldedNet, cfg: ClassifyConfig, signal: torch.Tensor,
     """(B, buffer) signal → (B, C) combined probabilities for one read end."""
     windows, mask = preprocess_batch(signal, lengths, cfg.preprocess)
     batch, num_windows, width = windows.shape
-    probs = apply_inference_kernels(net, windows.reshape(batch * num_windows, width))
+    apply = KERNEL_PATHS[cfg.kernel_path]
+    probs = apply(net, windows.reshape(batch * num_windows, width))
     probs = probs.reshape(batch, num_windows, -1)
     return combine_window_probs(probs, mask, rule=cfg.calling.combine)
 

@@ -90,6 +90,16 @@ def test_options_byte_identical(datasets, models, capsys, extra):
 
 
 @pytest.mark.parametrize("dual", [False, True])
+def test_pallas_byte_identical(datasets, models, capsys, dual):
+    """--pallas: the port's CUDA megakernel path (its plain version on the
+    CPU) against the JAX CLI's Pallas megakernel (interpret mode)."""
+    got, want = _both(datasets["fast5"][0], models, capsys, extra=("--pallas",),
+                      dual=dual)
+    assert got == want
+    assert len(got.splitlines()) == len(datasets["fast5"][1]) + 1
+
+
+@pytest.mark.parametrize("dual", [False, True])
 def test_verbose_table_matches(datasets, models, capsys, dual):
     directory, truth = datasets["fast5"]
     got, want = _both(directory, models, capsys, extra=("--verbose",), dual=dual)

@@ -1,5 +1,5 @@
-"""The CUDA kernel against its plain version, and the classify program on
-the card against the same program on the CPU.
+"""The CUDA kernels against their plain versions, and the classify program
+on the card against the same program on the CPU.
 
 Every test here needs a CUDA card and nvcc: they are marked ``cuda`` and
 skip without one.  The file imports no JAX, so it also runs on a machine
@@ -15,21 +15,31 @@ import pytest
 import torch
 
 from deepbinner_tpu_torch.models.checkpoint import load_model
-from deepbinner_tpu_torch.ops import conv_kernel
+from deepbinner_tpu_torch.models.kernel_apply import fold_network
+from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
 from deepbinner_tpu_torch.ops.calling import CallingConfig
 from deepbinner_tpu_torch.ops.conv_kernel import (
     conv1d_bn_relu_reference,
     fused_conv1d_bn_relu,
 )
 from deepbinner_tpu_torch.ops.preprocess import PreprocessConfig
+from deepbinner_tpu_torch.ops.trunk_kernel import (
+    SEGMENTS,
+    segment_input_channels,
+    segment_spec,
+    trunk_segment,
+    trunk_segment_reference,
+)
 from deepbinner_tpu_torch.runner.executor import classify_stream
 from deepbinner_tpu_torch.runner.pipeline import ClassifyConfig, ClassifyProgram
 from deepbinner_tpu_torch.utils import simulate
 
 pytestmark = pytest.mark.cuda
 
-TINY_MODEL = os.path.join(os.path.dirname(__file__), "..", "deepbinner_tpu",
-                          "models", "data", "TINY_dryrun.dbt")
+MODELS = os.path.join(os.path.dirname(__file__), "..", "deepbinner_tpu",
+                      "models", "data")
+TINY_MODEL = os.path.join(MODELS, "TINY_dryrun.dbt")
+START_MODEL = os.path.join(MODELS, "EXP-NBD103_read_starts.dbt")
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -89,6 +99,89 @@ def test_kernel_rejects_bad_inputs(cuda_device, bad):
         fused_conv1d_bn_relu(x, w, scale, bias)
 
 
+def _segment_input(cfg, segment, n, device, seed=0):
+    early, inc_lo, _hi, _head = segment_spec(cfg, segment)
+    length = cfg.input_length
+    if not early:
+        length //= 2 ** (1 + len(cfg.block_features) + inc_lo)
+    x = np.random.default_rng(seed).normal(
+        size=(n, length, segment_input_channels(cfg, segment)))
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("model_file", [START_MODEL, TINY_MODEL])
+@pytest.mark.parametrize("segment", SEGMENTS)
+def test_megakernel_matches_plain(cuda_device, model_file, segment):
+    """Flagship widths and the tiny model (whose late1 has no inception),
+    at a ragged N."""
+    model, cfg, _meta = load_model(model_file)
+    net = fold_network(model, cuda_device)
+    x = _segment_input(cfg, segment, 37, cuda_device)
+    before = trunk_kernel.LAUNCHES
+    got = trunk_segment(x, net.trunk, cfg, segment)
+    assert trunk_kernel.LAUNCHES == before + 1
+    want = trunk_segment_reference(x, net.units, cfg, segment)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_megakernel_is_deterministic(cuda_device):
+    model, cfg, _meta = load_model(START_MODEL)
+    net = fold_network(model, cuda_device)
+    x = _segment_input(cfg, "all", 64, cuda_device)
+    first = trunk_segment(x, net.trunk, cfg, "all")
+    assert torch.equal(first, trunk_segment(x, net.trunk, cfg, "all"))
+
+
+@pytest.mark.parametrize("bad", ["non_contiguous", "float64", "device"])
+def test_megakernel_rejects_bad_inputs(cuda_device, bad):
+    model, cfg, _meta = load_model(TINY_MODEL)
+    net = fold_network(model, cuda_device)
+    x = _segment_input(cfg, "all", 2, cuda_device)
+    if bad == "non_contiguous":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not x.is_contiguous()
+    elif bad == "float64":
+        x = x.double()
+    else:
+        net = fold_network(model, torch.device("cpu"))
+    with pytest.raises((ValueError, TypeError)):
+        trunk_segment(x, net.trunk, cfg, "all")
+
+
+def _tiny_program_reads():
+    rng = np.random.default_rng(9)
+    reads = []
+    for barcode in list(range(1, 13)) + [0] * 4:
+        read = simulate.simulate_read("EXP-NBD103", barcode, rng,
+                                      genome_length=600)
+        reads.append((read.read_id, read.signal))
+    return reads
+
+
+def test_fused_program_on_the_card_matches_the_cpu(cuda_device):
+    """kernel_path="fused": one K1 and one K2 launch per batch on the card,
+    the same calls as on the CPU."""
+    model, net_cfg, _meta = load_model(TINY_MODEL)
+    pre = PreprocessConfig(scan_size=768, window=net_cfg.input_length,
+                           stride=net_cfg.input_length // 2, trim_scan=512,
+                           host_trim=True, wire="int8")
+    cfg = ClassifyConfig(pre, CallingConfig(), kernel_path="fused")
+    reads = _tiny_program_reads()
+    results = {}
+    for device in ("cpu", "cuda"):
+        program = ClassifyProgram(model, cfg, device=device)
+        before = (conv_kernel.LAUNCHES, trunk_kernel.LAUNCHES)
+        results[device] = {r.read_id: r for r in classify_stream(
+            program, iter(reads), batch_size=8)}
+        launches = (conv_kernel.LAUNCHES - before[0],
+                    trunk_kernel.LAUNCHES - before[1])
+        assert launches == ((0, 0) if device == "cpu" else (2, 2))  # 2 batches
+    for read_id, want in results["cpu"].items():
+        got = results["cuda"][read_id]
+        assert got.call == want.call, read_id
+        np.testing.assert_allclose(got.start_probs, want.start_probs, atol=1e-4)
+
+
 def test_program_on_the_card_matches_the_cpu(cuda_device):
     """The whole classify program, card vs CPU: same calls, combined
     probabilities within 1e-4 (f32 sums in another order)."""
@@ -97,12 +190,7 @@ def test_program_on_the_card_matches_the_cpu(cuda_device):
                            stride=net_cfg.input_length // 2, trim_scan=512,
                            host_trim=True, wire="int8")
     cfg = ClassifyConfig(pre, CallingConfig())
-    rng = np.random.default_rng(9)
-    reads = []
-    for barcode in list(range(1, 13)) + [0] * 4:
-        read = simulate.simulate_read("EXP-NBD103", barcode, rng,
-                                      genome_length=600)
-        reads.append((read.read_id, read.signal))
+    reads = _tiny_program_reads()
     results = {}
     for device in ("cpu", "cuda"):
         program = ClassifyProgram(model, cfg, device=device)

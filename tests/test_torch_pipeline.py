@@ -61,12 +61,14 @@ def reads():
     return out
 
 
-def _both_programs(weights, dual, host_trim, wire, calling_kw):
+def _both_programs(weights, dual, host_trim, wire, calling_kw, kernel_path=None):
     jax_cfg = jax_pipeline.ClassifyConfig(
         JaxPreprocessConfig(**PRE, host_trim=host_trim, wire=wire),
-        JaxCallingConfig(**calling_kw), dual_model=dual)
+        JaxCallingConfig(**calling_kw), dual_model=dual,
+        use_pallas=kernel_path is not None, pallas_path=kernel_path)
     cfg = ClassifyConfig(PreprocessConfig(**PRE, host_trim=host_trim, wire=wire),
-                         CallingConfig(**calling_kw), dual_model=dual)
+                         CallingConfig(**calling_kw), dual_model=dual,
+                         kernel_path=kernel_path or "unit")
     (j_model, j_start, p_start), (_m, j_end, p_end) = weights
     jax_program = jax_pipeline.ClassifyProgram(
         j_model, jax_cfg, j_start, j_end if dual else None)
@@ -84,8 +86,26 @@ def _both_programs(weights, dual, host_trim, wire, calling_kw):
                                 require_both=True)),
 ])
 def test_call_table_matches_jax(weights, reads, dual, host_trim, wire, calling_kw):
-    jax_program, program = _both_programs(weights, dual, host_trim, wire,
-                                          calling_kw)
+    _assert_same_results(*_both_programs(weights, dual, host_trim, wire,
+                                         calling_kw), reads)
+
+
+@pytest.mark.parametrize("kernel_path", ["fused", "split3"])
+@pytest.mark.parametrize("dual", [False, True])
+def test_megakernel_paths_match_jax_pallas(weights, reads, kernel_path, dual):
+    """kernel_path against the JAX program's use_pallas + pallas_path (the
+    Pallas megakernel in interpret mode)."""
+    calling_kw = dict(min_score=0.0, score_diff=0.0) if dual else {}
+    _assert_same_results(*_both_programs(weights, dual, True, "int8", calling_kw,
+                                         kernel_path=kernel_path), reads)
+
+
+def test_unknown_kernel_path_is_refused():
+    with pytest.raises(ValueError):
+        ClassifyConfig(PreprocessConfig(**PRE), kernel_path="hybrid")
+
+
+def _assert_same_results(jax_program, program, reads):
     want = {r.read_id: r for r in jax_executor.classify_stream(
         jax_program, iter(reads), batch_size=8)}
     got = {r.read_id: r for r in executor.classify_stream(
