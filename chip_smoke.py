@@ -11,11 +11,15 @@ one JSON line per phase:
    versions, which optional packages import, the kernel build time.
 2. ``kernel_unit`` / ``kernels``: the fused ConvBNReLU kernel (K1) at each
    of the 15 unit geometries of ``EXP-NBD103_read_starts.dbt`` at N = 2816
-   windows (one 256-read batch), held against its plain PyTorch version at
-   atol and rtol 1e-4, with the kernel's, the plain version's and a cuDNN
-   yardstick's (``F.conv1d`` + affine + ReLU + pool, TF32 off) times and the
-   unit's bound: the larger of its bytes over 3.35 TB/s and its FP32
-   operations over 67 TFLOP/s (H100 SXM data sheet).
+   windows (one 256-read batch), with its plan (``ops/conv_kernel.plan_unit``:
+   output-channel tile, row tile, threads, inner loop, shared memory), held
+   against its plain PyTorch version at atol and rtol 1e-4 and against
+   itself (bit-identical rerun), with the kernel's, the "generic" loop's on
+   the same tiles, the plain version's and a cuDNN yardstick's
+   (``F.conv1d`` + affine + ReLU + pool, TF32 off) times and the unit's
+   bound: the larger of its bytes over 3.35 TB/s and its FP32 operations
+   over 67 TFLOP/s (H100 SXM data sheet).  The ``env`` line carries each
+   kernel instance's registers and spills from the build's ptxas report.
 3. ``megakernel_segment``: the trunk megakernel (K2) on each of the five
    segments (all, early, late, inc0, late1) at the same widths, N = 2816,
    held against its plain version at atol and rtol 1e-4 and against
@@ -155,29 +159,49 @@ def phase_kernels(device) -> dict:
     from deepbinner_tpu_torch.ops.conv_kernel import (
         conv1d_bn_relu_reference,
         fused_conv1d_bn_relu,
+        launch_planned,
+        plan_unit,
     )
 
     model, config, _meta = load_model(START_MODEL)
     net = fold_network(model, device)
     gen = torch.Generator(device=device).manual_seed(0)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0}
+              "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0, "generic_ms": 0.0}
     worst = 0.0
     for scope, length, dilation, pool in unit_geometries(config):
         kernel, scale, bias = net.units[scope]
         taps, c_in, c_out = kernel.shape
+        plan = plan_unit(c_in, c_out, taps, dilation, length)
+        if c_out % plan.co_tile:
+            raise AssertionError(f"{scope}: tile {plan.co_tile} wastes "
+                                 f"columns of C_out {c_out}")
         x = torch.randn((WINDOWS, length, c_in), generator=gen, device=device)
         got = fused_conv1d_bn_relu(x, kernel, scale, bias, dilation=dilation,
                                    pool=pool)
+        again = fused_conv1d_bn_relu(x, kernel, scale, bias,
+                                     dilation=dilation, pool=pool)
         want = conv1d_bn_relu_reference(x, kernel, scale, bias,
                                          dilation=dilation, pool=pool)
+        # The "generic" loop on the same tiles: the window loop's yardstick.
+        generic = plan._replace(path="generic")
+        got_generic = launch_planned(x, kernel, scale, bias, generic,
+                                     dilation=dilation, pool=pool)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, atol=TOL, rtol=TOL):
             raise AssertionError(f"{scope}: kernel disagrees with the plain "
                                  f"version, max abs err {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{scope}: K1 is not bit-identical from run "
+                                 f"to run")
+        generic_err = (got_generic - want).abs().max().item()
+        if not torch.allclose(got_generic, want, atol=TOL, rtol=TOL):
+            raise AssertionError(f"{scope}: the generic loop disagrees with "
+                                 f"the plain version, max abs err "
+                                 f"{generic_err}")
         worst = max(worst, err)
-        del got, want
+        del got, again, want, got_generic
 
         x_ncl = x.transpose(1, 2).contiguous()
         w_oik = kernel.permute(2, 1, 0).contiguous()
@@ -190,6 +214,8 @@ def phase_kernels(device) -> dict:
 
         ms = time_ms(lambda: fused_conv1d_bn_relu(
             x, kernel, scale, bias, dilation=dilation, pool=pool), 20)
+        generic_ms = time_ms(lambda: launch_planned(
+            x, kernel, scale, bias, generic, dilation=dilation, pool=pool), 20)
         plain_ms = time_ms(lambda: conv1d_bn_relu_reference(
             x, kernel, scale, bias, dilation=dilation, pool=pool), 5)
         library_ms = time_ms(library, 20)
@@ -202,11 +228,15 @@ def phase_kernels(device) -> dict:
         bound_ms = max(bytes_ms, ops_ms)
         emit("kernel_unit", unit=scope, n=WINDOWS, length=length, c_in=c_in,
              c_out=c_out, taps=taps, dilation=dilation, pool=pool,
-             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-             bound_ms=bound_ms,
+             co_tile=plan.co_tile, row_tile=plan.row_tile, path=plan.path,
+             threads=plan.threads, smem_bytes=plan.smem_bytes,
+             max_abs_err=err, bit_identical=True, ms=ms,
+             generic_ms=generic_ms, generic_max_abs_err=generic_err,
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
              bound_by="operations" if ops_ms >= bytes_ms else "bytes",
              gflop=flops / 1e9, mbytes=nbytes / 1e6)
         totals["ms"] += ms
+        totals["generic_ms"] += generic_ms
         totals["plain_ms"] += plain_ms
         totals["library_ms"] += library_ms
         totals["bound_ms"] += bound_ms
@@ -609,15 +639,18 @@ def main() -> int:
         except ImportError:
             packages[name] = False
     build_s = build_kernels()
+    from deepbinner_tpu_torch.ops import kernel_build
+
     emit("env", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], imports=packages,
-         kernel_build_s=build_s)
+         kernel_build_s=build_s, ptxas=kernel_build.PTXAS)
 
     kernels = phase_kernels(device)
     emit("kernels", kernels=[{"name": "conv1d_bn_relu", "parity": "ok",
                               "max_abs_err": kernels["max_abs_err"],
-                              "geometries": 15}])
+                              "geometries": 15, "ms": kernels["ms"],
+                              "generic_ms": kernels["generic_ms"]}])
     segments = phase_megakernel(device)
     emit("kernels", kernels=[{"name": "trunk_megakernel", "parity": "ok",
                               "max_abs_err": max(r["max_abs_err"] for r in

@@ -5,7 +5,8 @@ of DemuxNet is one call of :func:`fused_conv1d_bn_relu`:
 
 - on a CUDA tensor it launches the hand-written kernel
   ``csrc/conv1d_bn_relu.cu`` (built by :mod:`.kernel_build`, bound with
-  ctypes) or raises; nothing falls back;
+  ctypes) with the tiles :func:`plan_unit` picks, or raises; nothing falls
+  back;
 - on a CPU tensor it runs :func:`conv1d_bn_relu_reference`, the plain
   PyTorch version of the same function, which is also the oracle the
   kernel is held against on the card.
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -30,6 +31,57 @@ from deepbinner_tpu_torch.ops import kernel_build
 LAUNCHES = 0
 
 _KERNEL = "conv1d_bn_relu"
+
+# The kernel's template instances: the row tile built for each output-channel
+# tile (``DEEPBINNER_CONV_TILES`` in the source), and the (taps, dilation)
+# pairs with a "window" loop.  Every other pair runs the "generic" loop.
+ROW_TILES = {32: 256, 48: 128, 64: 128}
+CO_TILES = tuple(ROW_TILES)
+WINDOW_TAPS = frozenset({(1, 1), (3, 1), (3, 2), (3, 4)})
+CI_CHUNK = 32           # input channels staged per pass (kCiChunk)
+ROWS_PER_THREAD = 8     # kRows; a thread's rows share a window when L % 8 == 0
+COLS_PER_THREAD = 4     # kCols: one float4 of output channels
+SMEM_LIMIT = 232_448    # dynamic shared memory one block may take on an H100
+_ERRORS = {-1: "no kernel instance was built for this plan",
+           -2: "the plan's threads, shared memory or path do not fit its tiles"}
+
+
+class UnitPlan(NamedTuple):
+    """What one launch of the kernel runs: its tiles, block and inner loop."""
+
+    co_tile: int     # output channels per block
+    row_tile: int    # flattened (N·L) rows per block
+    threads: int     # threads per block
+    path: str        # "window" or "generic"
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def plan_unit(c_in: int, c_out: int, taps: int, dilation: int,
+              length: int) -> UnitPlan:
+    """The kernel's tiles for one unit geometry.
+
+    The output-channel tile is the one of ``CO_TILES`` that computes the
+    fewest columns, ``ceil(c_out / t) · t``, the widest on a tie: no column
+    is wasted at any flagship unit (48, 64, 96 = 2 × 48, 32, 128 = 2 × 64).
+    C_in does not change the plan: the kernel stages it 32 channels at a
+    time whatever its size.  Raises ``ValueError`` on a geometry the kernel
+    cannot take.
+    """
+    if min(c_in, c_out, taps, dilation, length) < 1:
+        raise ValueError(f"no plan for c_in={c_in}, c_out={c_out}, "
+                         f"taps={taps}, dilation={dilation}, length={length}")
+    co_tile = min(CO_TILES, key=lambda t: (-(-c_out // t) * t, -t))
+    row_tile = ROW_TILES[co_tile]
+    threads = row_tile // ROWS_PER_THREAD * (co_tile // COLS_PER_THREAD)
+    window = (taps, dilation) in WINDOW_TAPS and length % ROWS_PER_THREAD == 0
+    halo = (taps - 1) // 2 * dilation
+    smem = 4 * (taps * CI_CHUNK * co_tile
+                + (row_tile + 2 * halo) * (CI_CHUNK + 1))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{taps} taps at dilation {dilation} need {smem} B "
+                         f"of shared memory per block, over {SMEM_LIMIT}")
+    return UnitPlan(co_tile, row_tile, threads,
+                    "window" if window else "generic", smem)
 
 
 def fold_batchnorm(
@@ -95,7 +147,8 @@ def _launcher():
     fn = kernel_build.load(_KERNEL).deepbinner_conv1d_bn_relu
     # Every pointer and the stream as c_void_p: a bare Python int would be
     # passed as a 32-bit int and cut the address.
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    # 8 ints of geometry and 5 of the plan; a stale count would pass garbage.
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -118,13 +171,38 @@ def fused_conv1d_bn_relu(
       pool: fuse a trailing stride-2 window-2 maxpool (L must be even).
 
     Returns ``(N, L', C_out)`` float32 with L' = L//2 when pooling.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel.
+    tensor takes the plain version; a CUDA tensor launches the kernel with
+    the plan of :func:`plan_unit`.
     """
     if x.device.type == "cpu":
         return conv1d_bn_relu_reference(x, kernel, scale, bias,
                                         dilation=dilation, relu=relu, pool=pool)
+    _check_geometry(x, kernel, scale, bias, pool)
+    plan = plan_unit(x.shape[2], kernel.shape[2], kernel.shape[0], dilation,
+                     x.shape[1])
+    return launch_planned(x, kernel, scale, bias, plan, dilation=dilation,
+                          relu=relu, pool=pool)
+
+
+def launch_planned(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    plan: UnitPlan,
+    dilation: int = 1,
+    relu: bool = True,
+    pool: bool = False,
+) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors with a given ``plan``.
+
+    :func:`fused_conv1d_bn_relu` passes :func:`plan_unit`'s plan; a caller
+    that times one inner loop against the other passes its own.  A plan the
+    library was not built for raises ``RuntimeError``: the C side launches
+    nothing and picks no other plan.
+    """
     if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+        raise ValueError(f"the kernel needs CUDA tensors, x is on {x.device}")
     _check_geometry(x, kernel, scale, bias, pool)
     for name, t in (("x", x), ("kernel", kernel), ("scale", scale),
                     ("bias", bias)):
@@ -143,9 +221,12 @@ def fused_conv1d_bn_relu(
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(x.data_ptr(), kernel.data_ptr(), scale.data_ptr(),
                     bias.data_ptr(), out.data_ptr(), n, length, c_in, c_out,
-                    taps, dilation, int(relu), int(pool), stream)
+                    taps, dilation, int(relu), int(pool), plan.co_tile,
+                    plan.row_tile, plan.threads, int(plan.path == "window"),
+                    plan.smem_bytes, stream)
     if rc != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {rc}")
+        reason = _ERRORS.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{_KERNEL} launch failed for {plan}: {reason}")
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -4,12 +4,15 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
 use, on the machine with the card, by
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v
+         -o build/torch_kernels/<name>-<hash>.so <name>.cu
 
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale one is never loaded.  The build goes into
 ``build/torch_kernels/`` at the root of the checkout (``build/`` is ignored
 by git).  A failed build raises; nothing falls back to another path.
+``-Xptxas -v`` makes the one compile also report each kernel instance's
+registers and spills (:data:`PTXAS`).
 """
 
 from __future__ import annotations
@@ -17,24 +20,28 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build in this process (0.0 when it was
 # already built on disk); read by chip_smoke.py's env phase.
 BUILD_SECONDS: Dict[str, float] = {}
+# Registers and spill bytes of each kernel instance, from the ptxas report
+# of the build made in this process (empty when it was already on disk).
+PTXAS: Dict[str, List[dict]] = {}
 
 
 def _nvcc() -> str:
@@ -45,6 +52,44 @@ def _nvcc() -> str:
     if os.path.exists(fallback):
         return fallback
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """Readable kernel names (``c++filt`` where the machine has it)."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    proc = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                          text=True)
+    out = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(out) != len(names):
+        return names
+    return [re.sub(r"^void |\(anonymous namespace\)::", "", n).split("(")[0]
+            for n in out]
+
+
+def parse_ptxas(report: str) -> List[dict]:
+    """Each entry function's registers and spill bytes from ``-Xptxas -v``."""
+    entries: List[dict] = []
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entries.append({"kernel": found.group(1)})
+            continue
+        if not entries:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if spills:
+            entries[-1]["spill_stores"] = int(spills.group(1))
+            entries[-1]["spill_loads"] = int(spills.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            entries[-1]["registers"] = int(regs.group(1))
+    for entry, name in zip(entries,
+                           _demangle([e["kernel"] for e in entries])):
+        entry["kernel"] = name
+    return entries
 
 
 def library_path(name: str) -> str:
@@ -72,6 +117,7 @@ def build(name: str) -> str:
         )
     os.replace(tmp, path)  # atomic: no process loads a half-written library
     BUILD_SECONDS[name] = time.perf_counter() - start
+    PTXAS[name] = parse_ptxas(proc.stdout + proc.stderr)
     return path
 
 

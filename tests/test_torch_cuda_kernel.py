@@ -19,8 +19,11 @@ from deepbinner_tpu_torch.models.kernel_apply import fold_network
 from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
 from deepbinner_tpu_torch.ops.calling import CallingConfig
 from deepbinner_tpu_torch.ops.conv_kernel import (
+    UnitPlan,
     conv1d_bn_relu_reference,
     fused_conv1d_bn_relu,
+    launch_planned,
+    plan_unit,
 )
 from deepbinner_tpu_torch.ops.preprocess import PreprocessConfig
 from deepbinner_tpu_torch.ops.trunk_kernel import (
@@ -66,6 +69,21 @@ def _inputs(seed, n, length, c_in, c_out, taps, device):
     (3, 1, 128, 128, 32, False),  # head_conv
     (5, 3, 12, 10, 37, False),    # ragged: odd L, C_out not a multiple of 4
     (9, 8, 40, 70, 200, True),    # wide halo: over 48 KB of shared memory
+    # The rest of the 15 flagship units.
+    (3, 1, 48, 64, 512, False),   # block0_conv1
+    (3, 1, 64, 64, 512, True),    # block0_conv2
+    (3, 1, 64, 96, 256, False),   # block1_conv1: two 48-channel tiles
+    (3, 1, 96, 96, 256, True),    # block1_conv2
+    (3, 1, 96, 32, 128, True),    # inception0/branch3 (and branch_pool's 1x1)
+    (3, 2, 96, 32, 128, True),    # inception0/branch_dilated
+    (1, 1, 128, 32, 64, True),    # inception1/branch1x1 and branch_pool
+    (3, 1, 128, 32, 64, True),    # inception1/branch3
+    # Short windows: a block's rows span several, so taps cross window
+    # edges inside one block on either loop.
+    (3, 1, 64, 96, 16, True),     # C_out 96 as two 48-channel tiles
+    (3, 2, 8, 16, 16, True),
+    (3, 4, 16, 32, 24, False),
+    (3, 4, 16, 32, 36, False),    # L % 8 != 0: the generic loop
 ])
 @pytest.mark.parametrize("relu", [True, False])
 def test_kernel_matches_plain(cuda_device, taps, dilation, c_in, c_out, length,
@@ -77,6 +95,41 @@ def test_kernel_matches_plain(cuda_device, taps, dilation, c_in, c_out, length,
     want = conv1d_bn_relu_reference(*arrays, dilation=dilation, pool=pool,
                                     relu=relu)
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("taps,dilation,c_in,c_out,length", [
+    (3, 1, 64, 96, 256), (3, 4, 128, 32, 64), (1, 1, 96, 32, 128),
+    (3, 2, 8, 16, 16),
+])
+def test_generic_loop_matches_plain_where_the_window_loop_runs(
+        cuda_device, taps, dilation, c_in, c_out, length):
+    arrays = _inputs(7, 5, length, c_in, c_out, taps, cuda_device)
+    plan = plan_unit(c_in, c_out, taps, dilation, length)
+    assert plan.path == "window"
+    got = launch_planned(*arrays, plan._replace(path="generic"),
+                         dilation=dilation, pool=True)
+    want = conv1d_bn_relu_reference(*arrays, dilation=dilation, pool=True)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("plan", [
+    UnitPlan(40, 128, 160, "generic", 4 * (3 * 32 * 40 + 130 * 33)),  # no tile
+    UnitPlan(48, 64, 96, "generic", 4 * (3 * 32 * 48 + 66 * 33)),     # no rows
+    UnitPlan(48, 128, 256, "generic", 4 * (3 * 32 * 48 + 130 * 33)),  # threads
+    UnitPlan(48, 128, 192, "generic", 1024),                         # smem
+    UnitPlan(48, 128, 192, "window", 4 * (5 * 32 * 48 + 132 * 33)),  # 5 taps
+])
+def test_kernel_raises_for_a_plan_it_was_not_built_for(cuda_device,
+                                                       monkeypatch, plan):
+    """The C side returns an error and launches nothing; the wrapper raises
+    and picks no other plan."""
+    taps = 5 if plan.path == "window" else 3
+    arrays = _inputs(3, 2, 16, 8, 48, taps, cuda_device)
+    monkeypatch.setattr(conv_kernel, "plan_unit", lambda *args: plan)
+    before = conv_kernel.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_conv1d_bn_relu(*arrays)
+    assert conv_kernel.LAUNCHES == before
 
 
 def test_kernel_is_deterministic(cuda_device):
