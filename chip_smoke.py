@@ -23,7 +23,10 @@ one JSON line per phase:
 3. ``megakernel_segment``: the trunk megakernel (K2) on each of the five
    segments (all, early, late, inc0, late1) at the same widths, N = 2816,
    held against its plain version at atol and rtol 1e-4 and against
-   itself (bit-identical reruns), with the same three times and the bound.
+   itself (bit-identical reruns), with the same three times and the bound,
+   the plan (``ops/trunk_kernel.plan_segment``: early tile, threads, and
+   per pass its row tile, loops, items, passes and lanes used; its shared
+   memory must equal the C side's count) and K2's registers and spills.
 4. ``classify``: the flagship start model through ``build_program`` (the
    CLI defaults: host trim, int8 wire, batch 256) and ``classify_stream`` on
    2048 simulated reads, the stock-model accuracy floor on 40 fresh-seed
@@ -297,8 +300,9 @@ def phase_megakernel(device) -> dict:
 
     from deepbinner_tpu_torch.models.checkpoint import load_model
     from deepbinner_tpu_torch.models.kernel_apply import fold_network
-    from deepbinner_tpu_torch.ops import trunk_kernel
+    from deepbinner_tpu_torch.ops import kernel_build, trunk_kernel
     from deepbinner_tpu_torch.ops.trunk_kernel import (
+        plan_segment,
         segment_input_channels,
         trunk_segment,
         trunk_segment_reference,
@@ -352,15 +356,28 @@ def phase_megakernel(device) -> dict:
         nbytes = 4 * (x.numel() + out_numel + weight_numel)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / FP32_FLOP_PER_S * 1e3
+        plan = plan_segment(config, segment, length=length)
+        smem = trunk_kernel.shared_memory_bytes(net.trunk, config, segment,
+                                                length)
+        if smem != plan.smem_bytes:
+            raise AssertionError(f"{segment}: the planner counts "
+                                 f"{plan.smem_bytes} B of shared memory, "
+                                 f"the kernel {smem}")
         results[segment] = dict(
             segment=segment, n=WINDOWS, length=length, units=len(geometry),
             max_abs_err=err, bit_identical=True, library_max_abs_err=library_err,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            smem_bytes=trunk_kernel.shared_memory_bytes(
-                net.trunk, config, segment, length))
+            gflop=flops / 1e9, mbytes=nbytes / 1e6, smem_bytes=smem,
+            plan=dict(tile=plan.tile, threads=plan.threads,
+                      lanes=plan.lanes,
+                      units=[dict(unit=u.scopes[0].split("/")[0],
+                                  row_tile=u.row_tile, paths=u.paths,
+                                  rows=u.rows, items=u.items,
+                                  passes=u.passes, lanes=u.lanes)
+                             for u in plan.units]),
+            ptxas=kernel_build.PTXAS.get("trunk_megakernel", []))
         emit("megakernel_segment", **results[segment])
         del x, x_ncl
         torch.cuda.empty_cache()

@@ -39,8 +39,10 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build in this process (0.0 when it was
 # already built on disk); read by chip_smoke.py's env phase.
 BUILD_SECONDS: Dict[str, float] = {}
-# Registers and spill bytes of each kernel instance, from the ptxas report
-# of the build made in this process (empty when it was already on disk).
+# Registers and spill bytes of each kernel instance (and the stack frame and
+# spills of each device function ptxas compiled on its own), from the ptxas
+# report of the build made in this process (empty when it was already on
+# disk).
 PTXAS: Dict[str, List[dict]] = {}
 
 
@@ -69,27 +71,40 @@ def _demangle(names: List[str]) -> List[str]:
 
 
 def parse_ptxas(report: str) -> List[dict]:
-    """Each entry function's registers and spill bytes from ``-Xptxas -v``."""
-    entries: List[dict] = []
+    """Each entry function's registers and spill bytes from ``-Xptxas -v``,
+    and each non-inlined device function's stack frame and spill bytes."""
+    records: List[dict] = []
+    by_name: Dict[str, dict] = {}
+    current = entry = None
     for line in report.splitlines():
-        found = re.search(r"Compiling entry function '([^']+)'", line)
+        found = (re.search(r"Compiling entry function '([^']+)'", line)
+                 or re.search(r"Function properties for (\S+)", line))
         if found:
-            entries.append({"kernel": found.group(1)})
+            name = found.group(1)
+            if name not in by_name:
+                by_name[name] = {"kernel": name}
+                records.append(by_name[name])
+            current = by_name[name]
+            if "Compiling entry function" in line:
+                entry = current
             continue
-        if not entries:
+        if current is None:
             continue
+        frame = re.search(r"(\d+) bytes stack frame", line)
+        if frame and current is not entry:
+            current["stack_frame"] = int(frame.group(1))
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            line)
         if spills:
-            entries[-1]["spill_stores"] = int(spills.group(1))
-            entries[-1]["spill_loads"] = int(spills.group(2))
+            current["spill_stores"] = int(spills.group(1))
+            current["spill_loads"] = int(spills.group(2))
         regs = re.search(r"Used (\d+) registers", line)
-        if regs:
-            entries[-1]["registers"] = int(regs.group(1))
-    for entry, name in zip(entries,
-                           _demangle([e["kernel"] for e in entries])):
-        entry["kernel"] = name
-    return entries
+        if regs and entry is not None:
+            entry["registers"] = int(regs.group(1))
+    for record, name in zip(records,
+                            _demangle([r["kernel"] for r in records])):
+        record["kernel"] = name
+    return records
 
 
 def library_path(name: str) -> str:

@@ -12,10 +12,12 @@ through the global average pool, or a part of it) on a batch of windows:
   PyTorch version of the same function, which is also the oracle the
   kernel is held against on the card.
 
-The kernel picks its own tiling (one block per window, early units in row
+The kernel's tiling is fixed (one block per window, early units in row
 tiles with recomputed halos), so the Pallas path's batch-tile arguments
-have no counterpart here.  Every unit's folded weights live in one device
-buffer (:class:`PackedTrunk`), built once by :func:`pack_trunk`.
+have no counterpart here; how many rows each thread takes in each unit is
+planned here, by :func:`plan_segment`, and handed to the kernel with the
+unit table.  Every unit's folded weights live in one device buffer
+(:class:`PackedTrunk`), built once by :func:`pack_trunk`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +41,20 @@ _KERNEL = "trunk_megakernel"
 SEGMENTS = ("all", "early", "late", "inc0", "late1")
 
 Unit = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # kernel, scale, bias
+
+# The kernel's constants (csrc/trunk_megakernel.cu); a test reads each one
+# from the source.
+THREADS = 512           # kThreads: one block of this many threads per window
+TILE = 32               # kTile: early-output rows per tile
+SLACK = 8               # kSlack: rows a row tile may read past a buffer
+W_FLOATS = 16384        # kWFloats: the weight stage, in floats
+UNIT_INTS = 8           # kUnitInts: ints per unit in the C interface's table
+SMEM_LIMIT = 232_448    # kMaxSmem: dynamic shared memory a block may take
+# Rows per thread the kernel was built for (DEEPBINNER_TRUNK_ROW_TILES), and
+# the (taps, dilation) pairs with a "window" loop (path_of); every other
+# pair takes the "generic" loop, and an inception's pool branch "pool3".
+ROW_TILES = (2, 4, 6, 8)
+WINDOW_TAPS = frozenset({(1, 1), (3, 1), (3, 2), (3, 4)})
 
 
 def segment_spec(config, segment: str) -> Tuple[bool, int, int, bool]:
@@ -110,6 +126,258 @@ def segment_output_shape(config, segment: str, n: int, length: int) -> Tuple[int
     return (n, length // 2 ** _segment_pools(config, segment), c_out)
 
 
+class UnitGeometry(NamedTuple):
+    """One unit of the trunk as the kernel sees it."""
+
+    scope: str
+    c_in: int
+    c_out: int
+    taps: int
+    dilation: int
+    pool: bool
+
+
+def segment_geometry(config, segment: str) -> List[UnitGeometry]:
+    """Each unit of a segment in kernel execution order (the order of
+    :func:`mega_unit_scopes`), with the widths network.DemuxNet gives it."""
+    early, inc_lo, inc_hi, head = segment_spec(config, segment)
+    width = segment_input_channels(config, segment)
+    units: List[UnitGeometry] = []
+
+    def add(scope: str, c_out: int, taps: int, dilation: int = 1) -> None:
+        units.append(UnitGeometry(scope, width, c_out, taps, dilation,
+                                  _unit_pools(scope)))
+
+    if early:
+        add("stem2", config.stem_features, 3)
+        width = config.stem_features
+        for i, features in enumerate(config.block_features):
+            add(f"block{i}_conv1", features, 3)
+            width = features
+            add(f"block{i}_conv2", features, 3)
+    for i in range(inc_lo, inc_hi):
+        features = config.inception_features[i]
+        quarter = features // 4
+        scope = f"inception{i}"
+        add(f"{scope}/branch1x1", quarter, 1)
+        add(f"{scope}/branch3", features - 3 * quarter, 3)
+        add(f"{scope}/branch_dilated", quarter, 3, 2 ** (i + 1))
+        add(f"{scope}/branch_pool", quarter, 1)
+        width = features
+    if head:
+        add("head_conv", config.head_features, 3)
+    return units
+
+
+class UnitPlan(NamedTuple):
+    """One pass of the kernel: a unit, or an inception's four branches.
+
+    ``lanes`` is the share of the block's thread-rows that compute a row of
+    the pass: rows × 4-channel groups over passes × row_tile × threads.
+    ``useful`` is the share of those rows that lie in the early tile's own
+    rows rather than its recomputed halo (1 for the late units).
+    """
+
+    units: Tuple[UnitGeometry, ...]
+    paths: Tuple[str, ...]  # "window", "generic" or "pool3", per unit
+    row_tile: int           # RT: rows per thread
+    rows: int               # pre-pool rows the pass computes (per early tile)
+    items: int              # (unit, row tile, 4-channel group) items
+    passes: int             # rounds of `threads` items
+    lanes: float
+    useful: float
+    flops: int              # the units' FLOPs per window
+
+    @property
+    def scopes(self) -> Tuple[str, ...]:
+        return tuple(u.scope for u in self.units)
+
+
+class SegmentPlan(NamedTuple):
+    """What one launch of the kernel runs for a segment."""
+
+    tile: int                   # early-output rows per tile
+    threads: int                # threads per block
+    units: Tuple[UnitPlan, ...]
+    smem_bytes: int             # dynamic shared memory per block
+    lanes: float                # FLOP-weighted lanes used (weighted_lanes)
+
+
+def _path(unit: UnitGeometry, pool3: bool) -> str:
+    if pool3:
+        return "pool3"
+    return "window" if (unit.taps, unit.dilation) in WINDOW_TAPS else "generic"
+
+
+def _loads(row_tile: int, unit: UnitGeometry, path: str) -> int:
+    """Shared-memory loads per input channel of one item on its loop."""
+    if path == "pool3":
+        return row_tile + 2 + unit.taps
+    if path == "window":
+        return row_tile + (unit.taps - 1) * unit.dilation + unit.taps
+    return unit.taps * (row_tile + 1)
+
+
+def plan_pass(units: Sequence[UnitGeometry], rows: int, useful: float,
+              row_tiles: Sequence[int] = ROW_TILES,
+              threads: int = THREADS) -> UnitPlan:
+    """The row tile of one pass over ``rows`` pre-pool rows.
+
+    Picks the RT of ``row_tiles`` (even where the pass pools) that
+    minimises passes × RT / e(RT), where e(RT) is the share of FMAs among
+    the inner loops' FMAs and shared-memory loads: the time of the pass in
+    issued instructions per thread, up to a constant.  On a tie the larger
+    RT.  Raises ``ValueError`` when no row tile fits.
+
+    The formula is a count, not a model calibrated on the card: it fills
+    the block's lanes, but a late pass at full lanes and a small RT can
+    lose to one at half lanes and a larger RT (PERF.md §6).
+    """
+    pool = units[0].pool
+    inception = len(units) == 4
+    paths = tuple(_path(u, inception and i == 3) for i, u in enumerate(units))
+    groups = [-(-u.c_out // 4) for u in units]
+    best = None
+    for rt in row_tiles:
+        if pool and rt % 2:
+            continue
+        items = -(-rows // rt) * sum(groups)
+        passes = -(-items // threads)
+        fmas = sum(g * 4 * rt * u.taps for g, u in zip(groups, units))
+        loads = sum(g * _loads(rt, u, p)
+                    for g, u, p in zip(groups, units, paths))
+        key = (passes * rt * (fmas + loads) / fmas, -rt)
+        if best is None or key < best[0]:
+            best = (key, rt, items, passes)
+    if best is None:
+        raise ValueError(f"no row tile of {tuple(row_tiles)} fits "
+                         f"{[u.scope for u in units]}")
+    _key, rt, items, passes = best
+    lanes = rows * sum(groups) / (passes * rt * threads)
+    return UnitPlan(tuple(units), paths, rt, rows, items, passes, lanes,
+                    useful, 0)
+
+
+def weighted_lanes(units: Sequence[UnitPlan]) -> float:
+    """Useful FLOPs over the FLOPs the block's lanes could do in the time
+    the passes take: Σ flops / Σ flops / (lanes × useful)."""
+    return (sum(u.flops for u in units)
+            / sum(u.flops / (u.lanes * u.useful) for u in units))
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _halo(unit: UnitGeometry) -> int:
+    return (unit.taps - 1) // 2 * unit.dilation
+
+
+def _early_rows(early: Sequence[UnitGeometry]) -> List[Tuple[int, int]]:
+    """(a, b) input rows of each early unit for the tile [0, TILE): the C
+    side's make_plan and tile loop walk them from the last unit back."""
+    spans = [(0, 0)] * len(early)
+    a, b = 0, TILE
+    for i in reversed(range(len(early))):
+        h = _halo(early[i])
+        a, b = (2 * a - h, 2 * b + h) if early[i].pool else (a - h, b + h)
+        spans[i] = (a, b)
+    return spans
+
+
+def _smem_bytes(groups: Sequence[Sequence[UnitGeometry]], n_early: int,
+                head: bool, length: int, c_in0: int) -> int:
+    """make_plan's shared-memory layout: the unit table, the weight stage,
+    then the buffers p0 and p1 (p1 shared by the early tile's two)."""
+    units = [u for group in groups for u in group]
+    early = units[:n_early]
+    incs = [g for g in groups if len(g) == 4]
+    w_floats = _round4(min(W_FLOATS, max(
+        sum(u.taps * _round4(u.c_out) for u in g) * g[0].c_in for g in groups)))
+    a_need = b_need = 0
+    level, width = length, c_in0
+    for i, (a, b) in enumerate(_early_rows(early)):
+        need = (b - a + SLACK) * (early[i].c_in | 1)
+        if i % 2 == 0:
+            a_need = max(a_need, need)
+        else:
+            b_need = max(b_need, need)
+    for unit in early:
+        level //= 2 if unit.pool else 1
+    if early:
+        width = early[-1].c_out
+
+    def pad(k: int) -> int:  # consumer_pad of the k-th late pass
+        if k < len(incs):
+            return max(_halo(u) for u in incs[k])
+        return _halo(groups[-1][0]) if head else 0
+
+    need = [0, 0]
+    if incs or head:
+        need[0] = (level + 2 * pad(0) + SLACK) * (width | 1)
+        which = 0
+        for k, branches in enumerate(incs):
+            f = sum(u.c_out for u in branches)
+            level //= 2
+            if k < len(incs) - 1 or head:
+                need[1 - which] = max(need[1 - which],
+                                      (level + 2 * pad(k + 1) + SLACK) * (f | 1))
+            which = 1 - which
+        if head:
+            need[1 - which] = max(need[1 - which],
+                                  (level + SLACK) * (groups[-1][0].c_out | 1))
+    w_at = _round4(UNIT_INTS * len(units))
+    p1_at = w_at + w_floats + _round4(need[0])
+    return 4 * (p1_at + _round4(max(_round4(a_need) + b_need, need[1])))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_segment(config, segment: str, threads: int = THREADS,
+                 length: Optional[int] = None) -> SegmentPlan:
+    """Each pass's row tile for one launch on ``(N, length, C)`` windows
+    (``length`` defaults to the segment's at ``config.input_length``).
+
+    Mirrors the kernel's row arithmetic (csrc/trunk_megakernel.cu
+    ``make_plan`` and its tile loop): an early unit computes the rows of
+    one kTile tile of the early output plus their halo, a late pass every
+    row of its window.  Plain Python: the CPU tests check it against the
+    source's constants and the card tests against the C side's count.
+    Cached, so that a launch does not plan again.
+    """
+    early_on, inc_lo, inc_hi, head = segment_spec(config, segment)
+    if length is None:
+        length = config.input_length
+        if not early_on:
+            length //= 2 ** (1 + len(config.block_features) + inc_lo)
+    geometry = segment_geometry(config, segment)
+    n_early = 1 + 2 * len(config.block_features) if early_on else 0
+    early = geometry[:n_early]
+    groups = [[u] for u in early]
+    groups += [geometry[i:i + 4] for i in range(n_early, n_early + 4 * (inc_hi - inc_lo), 4)]
+    if head:
+        groups.append([geometry[-1]])
+    plans = []
+    level = length
+    n_tiles = -(-(length >> sum(u.pool for u in early)) // TILE)
+    spans = _early_rows(early)
+    for k, group in enumerate(groups):
+        unit = group[0]
+        if k < n_early:
+            # The unit's rows for one tile: its input span less the halo.
+            a, b = spans[k]
+            rows = b - a - 2 * _halo(unit)
+            useful = min(1.0, level / (n_tiles * rows))
+        else:
+            rows, useful = level, 1.0
+        plan = plan_pass(group, rows, useful, threads=threads)
+        flops = sum(2 * level * u.taps * u.c_in * u.c_out for u in group)
+        plans.append(plan._replace(flops=flops))
+        level //= 2 if unit.pool else 1
+    smem = _smem_bytes(groups, n_early, head, length,
+                       segment_input_channels(config, segment))
+    return SegmentPlan(TILE, threads, tuple(plans), smem, weighted_lanes(plans))
+
+
 def trunk_segment_reference(x: torch.Tensor, units: Dict[str, Unit], config,
                             segment: str) -> torch.Tensor:
     """The plain version: the segment's units one by one, in f32."""
@@ -146,6 +414,10 @@ class PackedTrunk:
     units: Dict[str, Unit]                 # scope → (kernel, scale, bias)
     params: torch.Tensor                   # kernel, scale, bias of each unit
     offsets: Dict[str, Tuple[int, int]]    # scope → (kernel, scale) offset
+    # make_plan's arguments per (config, segment, length, plan), built at a
+    # launch's first use.
+    plan_args: Dict[tuple, tuple] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
 
 def pack_trunk(config, units: Dict[str, Unit]) -> PackedTrunk:
@@ -169,14 +441,19 @@ def pack_trunk(config, units: Dict[str, Unit]) -> PackedTrunk:
     return PackedTrunk(units, params, offsets)
 
 
-def _unit_table(packed: PackedTrunk, config, segment: str) -> List[int]:
-    """Seven ints per unit, in the order csrc/trunk_megakernel.cu reads them."""
+def _unit_table(packed: PackedTrunk, plan: SegmentPlan) -> List[int]:
+    """UNIT_INTS ints per unit, in the order csrc/trunk_megakernel.cu reads
+    them; the kernel shapes must be the plan's."""
     table = []
-    for scope, dilation in mega_unit_scopes(config, segment):
-        taps, c_in, c_out = packed.units[scope][0].shape
-        kernel_at, scale_at = packed.offsets[scope]
-        table += [c_in, c_out, taps, dilation, int(_unit_pools(scope)), kernel_at,
-                  scale_at]
+    for unit_plan in plan.units:
+        for unit in unit_plan.units:
+            shape = tuple(packed.units[unit.scope][0].shape)
+            if shape != (unit.taps, unit.c_in, unit.c_out):
+                raise ValueError(f"{unit.scope}: kernel {shape}, but the "
+                                 f"config gives {(unit.taps, unit.c_in, unit.c_out)}")
+            kernel_at, scale_at = packed.offsets[unit.scope]
+            table += [unit.c_in, unit.c_out, unit.taps, unit.dilation,
+                      int(unit.pool), kernel_at, scale_at, unit_plan.row_tile]
     return table
 
 
@@ -210,21 +487,27 @@ def _library() -> ctypes.CDLL:
 
 
 def _plan_args(packed: PackedTrunk, config, segment: str, length: int,
-               c_in: int) -> tuple:
-    early, inc_lo, inc_hi, head = segment_spec(config, segment)
-    n_early = 1 + 2 * len(config.block_features) if early else 0
-    table = _unit_table(packed, config, segment)
-    ints = (ctypes.c_int * len(table))(*table)
-    return (length, c_in, n_early, inc_hi - inc_lo, int(head), ints,
-            len(table) // 7)
+               plan: SegmentPlan) -> tuple:
+    """make_plan's arguments, from the unit table on: cached on ``packed``."""
+    key = (config, segment, length, plan)
+    if key not in packed.plan_args:
+        early, inc_lo, inc_hi, head = segment_spec(config, segment)
+        n_early = 1 + 2 * len(config.block_features) if early else 0
+        table = _unit_table(packed, plan)
+        ints = (ctypes.c_int * len(table))(*table)
+        packed.plan_args[key] = (length, segment_input_channels(config, segment),
+                                 n_early, inc_hi - inc_lo, int(head), ints,
+                                 len(table) // UNIT_INTS)
+    return packed.plan_args[key]
 
 
 def shared_memory_bytes(packed: PackedTrunk, config, segment: str,
                         length: int) -> int:
-    """Dynamic shared memory one block of the kernel takes for a segment."""
-    c_in = segment_input_channels(config, segment)
+    """Dynamic shared memory one block takes for a segment, as the C side
+    counts it (-1 for a plan it does not take)."""
+    plan = plan_segment(config, segment, length=length)
     return int(_library().deepbinner_trunk_smem_bytes(
-        *_plan_args(packed, config, segment, length, c_in)))
+        *_plan_args(packed, config, segment, length, plan)))
 
 
 def trunk_segment(x: torch.Tensor, packed: PackedTrunk, config,
@@ -234,7 +517,7 @@ def trunk_segment(x: torch.Tensor, packed: PackedTrunk, config,
     Returns ``(N, head_features)`` for the segments that end at the global
     average pool ("all", "late", "late1"), else the ``(N, L', C')``
     activation.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel once.
+    launches the kernel once, with the row tiles of :func:`plan_segment`.
     """
     if segment not in SEGMENTS:
         raise ValueError(f"unknown segment {segment!r}; one of {SEGMENTS}")
@@ -250,16 +533,18 @@ def trunk_segment(x: torch.Tensor, packed: PackedTrunk, config,
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n, length, c_in = x.shape
+    n, length, _c_in = x.shape
     out = torch.empty(segment_output_shape(config, segment, n, length),
                       dtype=torch.float32, device=x.device)
+    plan = plan_segment(config, segment, length=length)
     launch = _library().deepbinner_trunk_segment
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(x.data_ptr(), packed.params.data_ptr(), out.data_ptr(), n,
-                    *_plan_args(packed, config, segment, length, c_in), stream)
+                    *_plan_args(packed, config, segment, length, plan), stream)
     if rc != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{_KERNEL} launch failed for row tiles "
+                           f"{[u.row_tile for u in plan.units]}: CUDA error {rc}")
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -177,6 +177,50 @@ def test_megakernel_matches_plain(cuda_device, model_file, segment):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("model_file", [START_MODEL, TINY_MODEL])
+@pytest.mark.parametrize("segment", ["inc0", "late1", "all"])
+def test_megakernel_matches_plain_on_negative_inputs(cuda_device, model_file,
+                                                     segment):
+    """Inputs mostly below 0: the pool branch's window-3 max must pad with
+    -inf, not with the buffers' zero rows."""
+    model, cfg, _meta = load_model(model_file)
+    net = fold_network(model, cuda_device)
+    x = _segment_input(cfg, segment, 3, cuda_device, seed=2) - 2
+    got = trunk_segment(x, net.trunk, cfg, segment)
+    want = trunk_segment_reference(x, net.units, cfg, segment)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("model_file", [START_MODEL, TINY_MODEL])
+@pytest.mark.parametrize("segment", SEGMENTS)
+def test_planner_shared_memory_is_the_kernels(cuda_device, model_file,
+                                              segment):
+    model, cfg, _meta = load_model(model_file)
+    net = fold_network(model, cuda_device)
+    plan = trunk_kernel.plan_segment(cfg, segment)
+    length = _segment_input(cfg, segment, 1, cuda_device).shape[1]
+    assert trunk_kernel.shared_memory_bytes(net.trunk, cfg, segment,
+                                            length) == plan.smem_bytes
+
+
+@pytest.mark.parametrize("row_tile", [0, 3, 9])  # none of them built
+def test_megakernel_raises_for_a_row_tile_it_was_not_built_for(
+        cuda_device, monkeypatch, row_tile):
+    """The C side returns an error and launches nothing; the wrapper raises
+    and picks no other row tile."""
+    model, cfg, _meta = load_model(TINY_MODEL)
+    net = fold_network(model, cuda_device)
+    plan = trunk_kernel.plan_segment(cfg, "all")
+    stem2 = plan.units[0]._replace(row_tile=row_tile)  # stem2 pools
+    bad = plan._replace(units=(stem2,) + plan.units[1:])
+    monkeypatch.setattr(trunk_kernel, "plan_segment", lambda *a, **k: bad)
+    x = _segment_input(cfg, "all", 2, cuda_device)
+    before = trunk_kernel.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        trunk_segment(x, net.trunk, cfg, "all")
+    assert trunk_kernel.LAUNCHES == before
+
+
 def test_megakernel_is_deterministic(cuda_device):
     model, cfg, _meta = load_model(START_MODEL)
     net = fold_network(model, cuda_device)
