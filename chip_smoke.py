@@ -8,7 +8,11 @@ Builds the port's CUDA kernels from ``deepbinner_tpu_torch/csrc`` (one
 one JSON line per phase:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, which optional packages import, the kernel build time.
+   versions, the kernel build time, and the probe of what the machine can
+   read signal files with: which of ``h5py``, ``zstandard``, ``pyarrow``
+   and ``flatbuffers`` import, what ``ctypes.util.find_library`` returns
+   for ``hdf5_serial``, ``hdf5`` and ``zstd``, and whether ``g++`` is on
+   the path.
 2. ``kernel_unit`` / ``kernels``: the fused ConvBNReLU kernel (K1) at each
    of the 15 unit geometries of ``EXP-NBD103_read_starts.dbt`` at N = 2816
    windows (one 256-read batch), with its plan (``ops/conv_kernel.plan_unit``:
@@ -38,8 +42,24 @@ one JSON line per phase:
    then ``cnn_ab``: the unit and fused CNN compositions timed in turns.
 7. ``split3``: the three-launch trunk on the first 512 of those reads:
    calls equal to the ``classify`` phase's, 1 K1 + 3 K2 launches per batch.
-8. ``cli``: the port's ``classify`` CLI on a small simulated fast5
-   directory, when ``h5py`` imports.
+8. ``tf32`` (fault F1): with ``torch.set_float32_matmul_precision("high")``
+   one flagship batch's packed call table must be bit-identical to the one
+   at ``"highest"``, and the process setting must read ``"high"`` after the
+   call.
+9. ``pool_ring``: the reader pool's shared-memory ring, without files: a
+   ring of ``MIN_SHM_SLOTS`` slots registered as pinned memory, filled by
+   ``build_batch_arrays(out=views)`` as a worker fills it, with the
+   ``classify`` phase's 2048 reads, handed to ``classify_batches`` as
+   6-tuples whose ``release`` overwrites the slot with 0x55 bytes.  The
+   calls must equal the ``classify`` phase's, with one release and 15 K1
+   launches per batch.
+10. ``native``: the native fast5 reader (where the probe found g++ and an
+    HDF5 runtime; held against h5py where it imports) and the native vbz
+    unpacker (where g++ is found; held against the numpy path); a part the
+    machine cannot build prints ``ran: false`` with the probe's reason.
+11. ``cli``: the port's ``classify`` CLI on a small simulated fast5
+    directory, with reader threads and with ``--reader_processes 2``, when
+    ``h5py`` imports (it writes the files).
 
 Any failure raises, so the script exits non-zero and prints no success
 line.  It needs a CUDA card and the repository's sources: without either it
@@ -507,7 +527,8 @@ def _classify_phase(phase: str, program, reads, truth, per_batch: dict,
          floor_wrong=floor_wrong, device_batch_ms=batch_ms,
          cnn_batch_ms=cnn_ms, host_batch_ms=host_batch_ms,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return {"calls": calls, "launches": launches}
+    return {"calls": calls, "launches": launches,
+            "reads_per_s": len(reads) / seconds, "device_batch_ms": batch_ms}
 
 
 def phase_classify(reads, truth) -> dict:
@@ -596,12 +617,216 @@ def phase_dual() -> None:
          exact=exact, wrong=wrong)
 
 
-def phase_cli() -> None:
+def probe_readers() -> dict:
+    """What this machine can read signal files with: fast5 needs h5py (or
+    the native reader: g++ and an HDF5 runtime library), pod5 needs
+    pyarrow, flatbuffers and zstandard."""
+    import ctypes.util
+    import shutil
+
+    imports = {}
+    for name in ("h5py", "msgpack", "zstandard", "pyarrow", "flatbuffers"):
+        try:
+            __import__(name)
+            imports[name] = True
+        except ImportError:
+            imports[name] = False
+    return {"imports": imports,
+            "find_library": {name: ctypes.util.find_library(name)
+                             for name in ("hdf5_serial", "hdf5", "zstd")},
+            "gxx": shutil.which("g++")}
+
+
+def phase_tf32(reads) -> None:
+    """Fault F1: the classify program pins TF32 off for its own calls."""
+    import torch
+
+    from deepbinner_tpu_torch.runner.executor import build_batch
+    from deepbinner_tpu_torch.runner.pipeline import (
+        classify_step,
+        pack_call_table,
+    )
+
+    program = _build_program()
+    _ids, sig, lens, _e, _el = build_batch(reads[:BATCH],
+                                           program.cfg.preprocess, BATCH, False)
+    tables = {}
     try:
-        import h5py  # noqa: F401
-    except ImportError as exc:
-        emit("cli", ran=False, reason=f"h5py does not import ({exc}); the "
-             "fast5 reader needs it")
+        for precision in ("high", "highest"):
+            torch.set_float32_matmul_precision(precision)
+            tables[precision] = program.call_packed(sig, lens).cpu()
+            after = torch.get_float32_matmul_precision()
+            if after != precision:
+                raise AssertionError(f"tf32: the process setting reads "
+                                     f"{after!r} after a call at {precision!r}")
+        # The same step outside the program's pin, TF32 left on: reported
+        # only, it shows what the pin keeps out.
+        torch.set_float32_matmul_precision("high")
+        with torch.inference_mode():
+            loose = pack_call_table(classify_step(
+                program.cfg, program.start_net, None,
+                *program.upload(sig, lens))).cpu()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    if not torch.equal(tables["high"], tables["highest"]):
+        diff = (tables["high"] - tables["highest"]).abs().max().item()
+        raise AssertionError(f"tf32: the call table at 'high' differs from "
+                             f"the one at 'highest' by {diff}")
+    emit("tf32", reads=BATCH, bit_identical=True,
+         unpinned_max_abs_diff=(loose - tables["highest"]).abs().max().item())
+
+
+def phase_pool_ring(reads, unit: dict) -> None:
+    """The reader pool's pinned shared-memory ring under classify_batches."""
+    import functools
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
+    from deepbinner_tpu_torch.runner.executor import (
+        MIN_SHM_SLOTS,
+        ExecutorStats,
+        batch_spec_for,
+        classify_batches,
+    )
+    from deepbinner_tpu_torch.runner.hostbatch import (
+        BatchScratch,
+        build_batch_arrays,
+    )
+    from deepbinner_tpu_torch.runner.mp_reader import _ShmRing
+
+    program = _build_program()
+    program.warm_up(BATCH)
+    spec = batch_spec_for(program.cfg.preprocess, BATCH, False)
+    ring = _ShmRing(mp.get_context("spawn"), spec, MIN_SHM_SLOTS, pin=True)
+    releases = []
+
+    def release(slot: int) -> None:
+        # Garbage in the slot at once: a release before the upload is done
+        # would show as a call that differs.
+        np.frombuffer(ring.slots[slot].buf, np.uint8)[:] = 0x55
+        releases.append(slot)
+        ring.free.put(slot)
+
+    def batches():
+        scratch = BatchScratch(spec)
+        for start in range(0, len(reads), BATCH):
+            slot = ring.free.get(timeout=60)
+            views = ring.views(ring.slots[slot])
+            ids, *_arrays = build_batch_arrays(reads[start:start + BATCH], spec,
+                                               out=views, scratch=scratch)
+            yield (ids, *views, functools.partial(release, slot))
+
+    try:
+        probe = ring.views(ring.slots[0])[0]
+        if not torch.from_numpy(probe).is_pinned():
+            raise AssertionError("pool_ring: a registered slot is not pinned")
+        del probe
+        stats = ExecutorStats()
+        conv_kernel.LAUNCHES = 0
+        trunk_kernel.LAUNCHES = 0
+        start = time.perf_counter()
+        calls = {r.read_id: r.call for r in classify_batches(
+            program, batches(), stats=stats)}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {"conv1d_bn_relu": conv_kernel.LAUNCHES,
+                    "trunk_megakernel": trunk_kernel.LAUNCHES}
+        _check_launches(launches, stats.batches,
+                        {"conv1d_bn_relu": 15, "trunk_megakernel": 0},
+                        "pool_ring")
+        if len(releases) != stats.batches:
+            raise AssertionError(f"pool_ring: {len(releases)} releases for "
+                                 f"{stats.batches} batches")
+        if len(calls) != len(reads):
+            raise AssertionError(f"pool_ring: {len(reads)} reads in, "
+                                 f"{len(calls)} calls out")
+        _same_calls("pool_ring", calls, unit["calls"])
+        # One batch classified straight from a registered slot: the upload
+        # from pinned memory is inside the timing.
+        slot = ring.free.get(timeout=60)
+        views = ring.views(ring.slots[slot])
+        build_batch_arrays(reads[:BATCH], spec, out=views)
+        batch_ms = time_ms(lambda: program.call_packed(views[0], views[1]), 5)
+        del views
+        ring.free.put(slot)
+    finally:
+        ring.close()
+    emit("pool_ring", reads=len(reads), batches=stats.batches,
+         slots=MIN_SHM_SLOTS, releases=len(releases), seconds=seconds,
+         reads_per_s=len(reads) / seconds, launches=launches,
+         launches_per_batch={k: v / stats.batches for k, v in launches.items()},
+         same_calls_as_classify=len(calls), device_batch_ms=batch_ms,
+         classify_reads_per_s=unit["reads_per_s"],
+         classify_device_batch_ms=unit["device_batch_ms"])
+
+
+def phase_native(probe: dict) -> None:
+    """Build the native readers where the probe says they can be built, and
+    hold each against its Python path."""
+    import numpy as np
+
+    from deepbinner_tpu_torch.native import build, fast5_reader, vbz
+    from deepbinner_tpu_torch.utils import pod5
+
+    reason = build.missing("fast5_reader")
+    if reason is None:
+        start = time.perf_counter()
+        fast5_reader.available()  # builds; a failed build raises
+        fast5 = {"ran": True, "build_s": time.perf_counter() - start}
+        if probe["imports"]["h5py"]:
+            from deepbinner_tpu_torch.utils import fast5 as fast5_io
+            from deepbinner_tpu_torch.utils import simulate
+
+            data_dir = os.path.join(WORK_DIR, "native_dataset")
+            simulate.make_dataset(data_dir, kit="EXP-NBD103",
+                                  reads_per_barcode=1, none_reads=2,
+                                  genome_length=600, seed=3, write_fastq=False,
+                                  container="multifast5")
+            files = fast5_io.find_all_fast5s(data_dir)
+            want = {r: s for f in files for r, s in fast5_io.read_signal_file(f)}
+            got = {r: s for f in files for r, s in fast5_reader.read_file(f)}
+            if sorted(got) != sorted(want) or any(
+                    not np.array_equal(got[r], want[r]) for r in want):
+                raise AssertionError("native: the fast5 reader's reads differ "
+                                     "from h5py's")
+            fast5["reads_equal_to_h5py"] = len(got)
+    else:
+        fast5 = {"ran": False, "reason": reason}
+
+    reason = build.missing("vbz_decode")
+    if reason is None:
+        start = time.perf_counter()
+        vbz.available()  # builds; a failed build raises
+        build_s = time.perf_counter() - start
+        rng = np.random.default_rng(12)
+        cases = [rng.integers(300, 700, 102_400).astype(np.int16),
+                 rng.integers(-32768, 32767, 4097).astype(np.int16),
+                 np.asarray([-1, 1, -32768, 32767, 0], np.int16)]
+        for signal in cases:
+            delta = np.diff(signal.astype(np.int32), prepend=0).astype(np.int16)
+            raw = pod5.svb16_encode(pod5._zigzag_encode(delta))
+            want = np.cumsum(pod5._zigzag_decode(
+                pod5.svb16_decode(raw, signal.size)).astype(np.int64)
+            ).astype(np.int16)
+            got = vbz.unpack(raw, signal.size)
+            if not (np.array_equal(got, want) and np.array_equal(got, signal)):
+                raise AssertionError("native: the vbz unpacker differs from "
+                                     "the numpy path")
+        vbz_line = {"ran": True, "build_s": build_s, "cases": len(cases)}
+    else:
+        vbz_line = {"ran": False, "reason": reason}
+    emit("native", fast5_reader=fast5, vbz_decode=vbz_line)
+
+
+def phase_cli(probe: dict) -> None:
+    if not probe["imports"]["h5py"]:
+        emit("cli", ran=False,
+             reason="h5py does not import, so no fast5 can be written here; "
+                    "pod5 needs pyarrow, flatbuffers and zstandard "
+                    f"(imports: {probe['imports']})")
         return
     import shutil
 
@@ -614,18 +839,28 @@ def phase_cli() -> None:
                                   reads_per_barcode=2, none_reads=4,
                                   genome_length=1200, seed=5,
                                   write_fastq=False)
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        cli_main(["classify", os.path.join(data_dir, "fast5s"), "-s",
-                  START_MODEL, "-e", END_MODEL, "--batch_size", "16"])
-    rows = [line.split("\t") for line in out.getvalue().splitlines()[1:]
+    tables, rates = {}, {}
+    for name, extra in (("threads", ["--reader_processes", "0"]),
+                        ("pool", ["--reader_processes", "2"])):
+        out = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli_main(["classify", os.path.join(data_dir, "fast5s"), "-s",
+                      START_MODEL, "-e", END_MODEL, "--batch_size", "16",
+                      *extra])
+        rates[name] = len(truth) / (time.perf_counter() - start)
+        tables[name] = out.getvalue()
+    if tables["pool"] != tables["threads"]:
+        raise AssertionError("cli: --reader_processes 2 gives other rows")
+    rows = [line.split("\t") for line in tables["pool"].splitlines()[1:]
             if line]
     if sorted(r[0] for r in rows) != sorted(truth):
         raise AssertionError("cli: rows do not match the simulated reads")
     calls = {r[0]: r[1] for r in rows}
     exact = sum(1 for rid, t in truth.items()
                 if calls[rid] == ("none" if t == 0 else f"barcode{t:02d}"))
-    emit("cli", ran=True, reads=len(truth), rows=len(rows), exact=exact)
+    emit("cli", ran=True, reads=len(truth), rows=len(rows), exact=exact,
+         reads_per_s_threads=rates["threads"], reads_per_s_pool=rates["pool"])
     shutil.rmtree(data_dir, ignore_errors=True)
 
 
@@ -641,26 +876,21 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    # TF32 off everywhere: the reference is f32.  Only the cuDNN yardstick
-    # and the plain version's matmuls would otherwise use it.
+    # TF32 off everywhere: the reference is f32.  The classify program pins
+    # it off for its own calls (runner/pipeline.full_f32); the cuDNN
+    # yardstick and the plain versions called here directly need it too.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     smi = nvidia_smi_line()
 
-    packages = {}
-    for name in ("h5py", "msgpack", "zstandard"):
-        try:
-            __import__(name)
-            packages[name] = True
-        except ImportError:
-            packages[name] = False
+    probe = probe_readers()
     build_s = build_kernels()
     from deepbinner_tpu_torch.ops import kernel_build
 
     emit("env", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0], imports=packages,
+         python=sys.version.split()[0], probe=probe,
          kernel_build_s=build_s, ptxas=kernel_build.PTXAS)
 
     kernels = phase_kernels(device)
@@ -678,7 +908,10 @@ def main() -> int:
     phase_dual()
     fused = phase_classify_fused(reads, truth, unit["calls"])
     phase_split3(reads[:512], unit["calls"])
-    phase_cli()
+    phase_tf32(reads)
+    phase_pool_ring(reads, unit)
+    phase_native(probe)
+    phase_cli(probe)
 
     # K2's numbers are those of the "all" segment, the one launch per batch
     # that classify --pallas makes; every segment's are on its own line.

@@ -5,9 +5,11 @@ Counterpart of ``deepbinner_tpu/cli/classify.py``.  The TSV goes to stdout
 progress to stderr, in the same format as the JAX CLI, so a plain table is
 byte-identical to the JAX package's for the same reads and weights.
 
-One process on one device: the multi-host sharding and the reader worker
-processes of the JAX package are not ported yet, so the shard manifest
-always records process 0 of 1.
+Files are decoded and batches built in reader worker processes on the card
+(``--reader_processes``, the JAX CLI's default on an accelerator) or in
+reader threads on the CPU.  One process on one device: the multi-host
+sharding of the JAX package is not ported yet, so the shard manifest always
+records process 0 of 1.
 """
 
 from __future__ import annotations
@@ -125,23 +127,104 @@ def result_to_row(result, verbose: bool, dual: bool) -> str:
 class StreamRunner:
     """One classify run's streaming machinery, reusable across work shards.
 
-    Reads with in-process reader threads; `classify(files)` streams
-    ReadResults for any subset of files, so the resumable shard loop
-    reuses the program.
+    Owns either a persistent reader worker pool (the default on the card:
+    workers decode files and build batches, which go to the card straight
+    from pinned shared-memory slots) or the in-process reader threads (the
+    default on the CPU: no spawn or import cost).  `classify(files)`
+    streams ReadResults for any subset of files, so the resumable shard
+    loop reuses the program AND the pool.  `close()` stops the pool.
     """
 
     def __init__(self, program, args, stats) -> None:
         self.program = program
         self.args = args
         self.stats = stats
+        self.pool = None
+        reader_processes = int(getattr(args, "reader_processes", -1))
+        if reader_processes < 0:
+            # Auto: scale decode with the host but leave cores for the
+            # feeder and the classify thread; in-process on the CPU.
+            reader_processes = (0 if program.device.type == "cpu"
+                                else max(2, min(8, (os.cpu_count() or 2) - 2)))
+        if reader_processes > 0:
+            from deepbinner_tpu_torch.runner.executor import (
+                MIN_SHM_SLOTS,
+                batch_spec_for,
+            )
+            from deepbinner_tpu_torch.runner.mp_reader import ReaderPool
+
+            log(f"  {reader_processes} reader worker process(es), "
+                f"worker-side batch assembly"
+                + ("" if not program.cfg.preprocess.host_trim
+                   else " + host-side trim"))
+            spec = batch_spec_for(program.cfg.preprocess, args.batch_size,
+                                  program.cfg.dual_model)
+            # The zero-copy path holds a slot for every batch in the
+            # classify pipeline's in-flight window, so fewer slots than the
+            # window would stall the writers: clamp up, loudly.
+            shm_slots = int(getattr(args, "shm_slots", MIN_SHM_SLOTS + 2))
+            if 0 < shm_slots < MIN_SHM_SLOTS:
+                log(f"  --shm_slots {shm_slots} is below the classify "
+                    f"pipeline's in-flight window; using {MIN_SHM_SLOTS}")
+                shm_slots = MIN_SHM_SLOTS
+            self.pool = ReaderPool(
+                num_workers=reader_processes, batch_spec=spec,
+                use_native=not getattr(args, "no_native_reader", False),
+                shm_slots=shm_slots,
+                pin_memory=program.device.type == "cuda",
+            )
+            if self.pool.use_native:
+                log("  using native C++ fast5 reader")
+        else:
+            self.read_fn = _select_read_fn(args)
 
     def classify(self, files):
-        from deepbinner_tpu_torch.runner.executor import classify_files
+        from deepbinner_tpu_torch.runner.executor import (
+            classify_batches,
+            classify_files,
+        )
 
+        if self.pool is not None:
+            # copy=False: each batch stays in its slot until its upload is
+            # done, and goes to the card from there.
+            return classify_batches(
+                self.program, self.pool.iter_batches(files, self.stats,
+                                                     copy=False),
+                stats=self.stats,
+            )
         return classify_files(
             self.program, files, batch_size=self.args.batch_size,
             num_readers=self.args.num_readers, stats=self.stats,
+            read_fn=self.read_fn,
         )
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.close()
+
+
+def _select_read_fn(args):
+    """The in-process readers' ReadFn: the native C++ fast5 reader where it
+    can be built (unless ``--no_native_reader``), else h5py; pod5 always
+    through the pod5 parser."""
+    from deepbinner_tpu_torch.native import build, fast5_reader
+    from deepbinner_tpu_torch.runner.executor import _default_read_fn
+
+    if getattr(args, "no_native_reader", False):
+        return _default_read_fn
+    if fast5_reader.available():
+        log("  using native C++ fast5 reader")
+
+        def dispatch(path: str):
+            if path.endswith(".pod5"):
+                return _default_read_fn(path)
+            return fast5_reader.read_file(path)
+
+        return dispatch
+    if getattr(args, "native_reader", False):
+        log(f"  native reader cannot be built here "
+            f"({build.missing('fast5_reader')}); reading through h5py")
+    return _default_read_fn
 
 
 def _run_fingerprint(args, program) -> str:
@@ -267,18 +350,22 @@ def classify_fast5_files(args) -> None:
 
     runner = StreamRunner(program, args, stats)
     resumed_reads = 0
-    if shard_dir:
-        rows, resumed_reads = _classify_resumable(
-            runner, files, shard_dir,
-            int(getattr(args, "shard_files", 0) or 256), progress,
-            _run_fingerprint(args, program),
-        )
-    else:
-        for result in runner.classify(files):
-            rows.append((result.read_id, table.class_index_to_call(result.call)))
-            if args.verbose:
-                verbose_rows.append(result_to_row(result, True, dual))
-            progress.update()
+    try:
+        if shard_dir:
+            rows, resumed_reads = _classify_resumable(
+                runner, files, shard_dir,
+                int(getattr(args, "shard_files", 0) or 256), progress,
+                _run_fingerprint(args, program),
+            )
+        else:
+            for result in runner.classify(files):
+                rows.append((result.read_id,
+                             table.class_index_to_call(result.call)))
+                if args.verbose:
+                    verbose_rows.append(result_to_row(result, True, dual))
+                progress.update()
+    finally:
+        runner.close()
     elapsed = progress.finish()
     if stats.failed_files:
         sample = ", ".join(os.path.basename(p) for p in stats.failed_paths[:3])

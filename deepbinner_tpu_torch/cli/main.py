@@ -6,9 +6,9 @@ differences in `classify` and `realtime`:
 
 - ``--device {cuda,cpu}`` (default ``cuda``) picks the device, where the
   JAX CLI goes by ``JAX_PLATFORMS``; without a card, ``cuda`` is an error;
-- the flags of parts not ported yet are gone: ``--reader_processes`` and
-  ``--shm_slots`` (the shared-memory reader pool), ``--native_reader`` /
-  ``--no_native_reader`` (the C++ fast5 reader) and ``--profile_dir``;
+- ``--reader_processes -1`` (the default) means reader worker processes on
+  ``--device cuda`` and in-process reader threads on ``--device cpu``;
+- ``--profile_dir`` is not ported yet;
 - ``--pallas`` runs the trunk after stem1 as one launch of the CUDA
   megakernel per batch, as the JAX CLI's ``--pallas`` runs the Pallas
   megakernel; without it every unit is one launch of the unit kernel;
@@ -96,6 +96,11 @@ def _add_classify_common(parser: argparse.ArgumentParser) -> None:
     perf = parser.add_argument_group("Performance")
     perf.add_argument("--num_readers", type=int, default=4,
                       help="fast5/pod5 reader threads (default 4)")
+    perf.add_argument("--reader_processes", type=int, default=-1,
+                      help="fast5/pod5 reader worker processes (-1 = auto: "
+                           "max(2, min(8, CPUs - 2)) on the card, in-process "
+                           "threads on the CPU; 0 = in-process threads; >0 "
+                           "scales past the single-libhdf5 lock)")
     perf.add_argument("--wire", default=None,
                       choices=["int16", "int8", "int4"],
                       help="host->device signal format. int8 (default): "
@@ -104,13 +109,26 @@ def _add_classify_common(parser: argparse.ArgumentParser) -> None:
                            "per-window z-score on the device erases the "
                            "scale. int16: lossless raw DAC samples. int4: "
                            "sigma/3.5 nibbles packed 2/byte")
+    perf.add_argument("--shm_slots", type=int, default=20,
+                      help="shared-memory batch-transport slots between "
+                           "reader workers and the classify process (0 = "
+                           "pickled queue; default 20). The zero-copy path "
+                           "holds a slot per in-flight batch, so fewer than "
+                           "the pipeline window is clamped up; on the card "
+                           "the slots are registered as pinned memory")
+    perf.add_argument("--native_reader", action="store_true",
+                      help="Use the C++ libhdf5 batch reader (default: auto "
+                           "when it can be built)")
+    perf.add_argument("--no_native_reader", action="store_true",
+                      help="Force the h5py reader even if the native one "
+                           "can be built")
     perf.add_argument("--pallas", action="store_true",
                       help="Run the conv trunk after stem1 as one launch of "
                            "the CUDA megakernel per batch (default: one "
                            "launch of the unit kernel per ConvBNReLU unit)")
     perf.add_argument("--device_trim", action="store_true",
                       help="Run open-pore trimming on the device instead "
-                           "of in the reader threads (same math)")
+                           "of on the host (same math)")
     perf.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                       help="Device to classify on (default cuda; cpu must "
                            "be asked for)")

@@ -1,0 +1,67 @@
+// Native vbz signal decode: svb16 unpack + zigzag + wrapping prefix sum.
+//
+// The pod5 signal codec (utils/pod5.py) is zstd over svb16-packed
+// zigzag-encoded int16 deltas.  zstd decompression is already C (the
+// python-zstandard module), but the numpy unpack path costs ~8 separate
+// passes over the samples (unpackbits, cumsum for offsets, two fancy
+// gathers, zigzag arithmetic, int64 cumsum, int16 cast); the JAX
+// package measured it at 4x the C++ fast5 reader's whole per-read cost on
+// its host (BENCH_POD5_r05.jsonl).  This single fused pass does the same
+// work in one scalar loop.
+//
+// Reference parity: the vbz v1 codec semantics mirrored from
+// utils/pod5.py::vbz_decompress (itself written to the public pod5
+// format spec — SURVEY.md §2 item 10); bit-identical output is pinned
+// by tests/test_torch_native.py against the numpy path.
+//
+// A copy of deepbinner_tpu/native/src/vbz_decode.cc for the PyTorch port.
+
+#include <cstdint>
+
+extern "C" {
+
+// svb16-unpack `count` values from `raw` (keys block then data block),
+// zigzag-decode each to an int16 delta, and write the wrapping int16
+// prefix sum into `out`.  Returns 0 on success, -1 on a truncated
+// stream (never reads past raw + raw_len).
+int64_t db_vbz_unpack(const uint8_t* raw, int64_t raw_len, int64_t count,
+                      int16_t* out) {
+  if (count < 0) return -1;
+  const int64_t key_len = (count + 7) / 8;
+  if (raw_len < key_len) return -1;
+  const uint8_t* keys = raw;
+  const uint8_t* data = raw + key_len;
+  const uint8_t* const end = raw + raw_len;
+  uint16_t acc = 0;  // unsigned: wrapping int16 accumulation without UB
+  int64_t i = 0;
+  // Branchless main loop: always load two bytes and mask the high one
+  // away for narrow values — a data-dependent branch per element costs
+  // ~2x (measured for the JAX package).  Safe while a full 2-byte load
+  // fits.
+  for (; i < count && data + 2 <= end; ++i) {
+    const uint16_t wide = (keys[i >> 3] >> (i & 7)) & 1;
+    uint16_t v = static_cast<uint16_t>(data[0] | (data[1] << 8));
+    v = static_cast<uint16_t>(v & (0x00FF | (0xFF00u * wide)));
+    data += 1 + wide;
+    // zigzag: (v >> 1) ^ (all-ones if v odd else 0)
+    const uint16_t z =
+        static_cast<uint16_t>((v >> 1) ^ static_cast<uint16_t>(-(v & 1)));
+    acc = static_cast<uint16_t>(acc + z);
+    out[i] = static_cast<int16_t>(acc);
+  }
+  // Tail (final byte may be a narrow value): bounds-checked per element.
+  for (; i < count; ++i) {
+    const int wide = (keys[i >> 3] >> (i & 7)) & 1;
+    if (data + 1 + wide > end) return -1;
+    uint16_t v = data[0];
+    if (wide) v = static_cast<uint16_t>(v | (data[1] << 8));
+    data += 1 + wide;
+    const uint16_t z =
+        static_cast<uint16_t>((v >> 1) ^ static_cast<uint16_t>(-(v & 1)));
+    acc = static_cast<uint16_t>(acc + z);
+    out[i] = static_cast<int16_t>(acc);
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,15 +1,21 @@
-"""Streaming batch executor: reader threads → fixed-shape batches → device.
+"""Streaming batch executor: readers → fixed-shape batches → device.
 
-Counterpart of ``deepbinner_tpu/runner/executor.py``, with in-process
-reader threads only (the shared-memory ``ReaderPool`` is not ported yet):
+Counterpart of ``deepbinner_tpu/runner/executor.py``.  Batches come from
+one of two sources:
 
-- a reader thread pool pulls raw signal from fast5/pod5 files into a
-  bounded queue (I/O and decode overlap compute; the bound gives
-  backpressure);
-- batches are padded to one fixed size;
-- CUDA launches are asynchronous, so while the card works on batch i the
-  host builds batch i+1; a small in-flight deque blocks only on the oldest
-  result's copy back to the host.
+- in-process reader threads (:func:`iter_signals`, :func:`classify_files`)
+  pull raw signal from fast5/pod5 files into a bounded queue and the batches
+  are built here, on the consumer;
+- the reader worker processes of :mod:`.mp_reader` build the batches
+  themselves and hand them over in shared-memory slots
+  (:func:`classify_batches` takes their ``(ids, start, start_len, end,
+  end_len, release)`` 6-tuples).
+
+Batches are padded to one fixed size.  CUDA launches are asynchronous, so
+while the card works on batch i the host builds batch i+1; a small
+in-flight deque blocks only on the oldest result's copy back to the host.
+A shared-memory slot goes back to the workers only once a CUDA event
+recorded right after its batch's upload has completed.
 
 Per-file read errors are skipped and counted.  When the consumer abandons
 a pass, the prefetch feeder is stopped and joined and the batch generator
@@ -25,6 +31,7 @@ import threading
 from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from deepbinner_tpu_torch.ops.preprocess import PreprocessConfig
 from deepbinner_tpu_torch.runner.hostbatch import (  # noqa: F401 — re-exported API
@@ -178,34 +185,80 @@ def build_batch(
     return build_batch_arrays(reads, batch_spec_for(cfg, batch_size, dual))
 
 
+# The streaming window: batches enqueued on the device before the oldest
+# result is copied back, and batches prefetched by the feeder thread.  A
+# zero-copy pass (ReaderPool.iter_batches(copy=False)) holds a slot for
+# every batch in that window, so a ring needs at least MIN_SHM_SLOTS.
 IN_FLIGHT = 2
 PREFETCH = 2
+MIN_SHM_SLOTS = IN_FLIGHT + PREFETCH + 2
+
+
+@dataclasses.dataclass
+class _Pending:
+    """One dispatched batch: its ids, its packed result on the device, and
+    for a shared-memory batch the slot's release and the upload's event."""
+
+    ids: List[str]
+    packed: torch.Tensor
+    release: Optional[Callable[[], None]] = None
+    uploaded: Optional["torch.cuda.Event"] = None
+
+    def release_if_uploaded(self, wait: bool = False) -> None:
+        """Give the slot back once the upload has completed (``wait``:
+        block until it has)."""
+        if self.release is None:
+            return
+        if self.uploaded is not None:
+            if wait:
+                self.uploaded.synchronize()
+            elif not self.uploaded.query():
+                return
+        self.release()
+        self.release = None
+
+
+def _upload_event(device: torch.device) -> Optional["torch.cuda.Event"]:
+    """An event on the current stream, recorded right after an upload (None
+    on the CPU, where the upload is done when it returns)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
 
 
 def classify_batches(
     program: ClassifyProgram,
-    batches: Iterable[BuiltBatch],
+    batches: Iterable[tuple],
     stats: Optional[ExecutorStats] = None,
     in_flight: int = IN_FLIGHT,
     prefetch: int = PREFETCH,
 ) -> Iterator[ReadResult]:
     """Classify pre-built fixed-shape batches; yields ReadResults in order.
 
+    A batch is a 5-tuple ``(ids, start, start_len, end, end_len)`` of owned
+    arrays, or a reader pool's 6-tuple with a ``release`` that gives its
+    shared-memory slot back.  A slot is released once the CUDA event
+    recorded right after its upload has completed: checked after every
+    dispatch, and at the latest when the batch's result comes back to the
+    host (the copy back is ordered after the upload).
+
     Up to ``in_flight`` batches are enqueued on the device before the
     oldest result is copied back.  ``prefetch`` > 0 pulls ``batches`` on a
     feeder thread, so host batch assembly overlaps the wait for results.
-    On exit, normal or not, the feeder is stopped and joined and the
+    On exit, normal or not, the slots of pending batches are released once
+    their uploads are done, the feeder is stopped and joined and the
     ``batches`` generator is closed.
     """
     stats = stats or ExecutorStats()
-    dual = program.cfg.dual_model
-    pending: "collections.deque[Tuple[List[str], object]]" = collections.deque()
+    pending: "collections.deque[_Pending]" = collections.deque()
     source = batches
     stop = threading.Event()
     feeder = None
+    feed: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
 
     if prefetch > 0:
-        feed: "queue.Queue" = queue.Queue(maxsize=prefetch)
         error: List[BaseException] = []
 
         def feed_batches() -> None:
@@ -221,7 +274,7 @@ def classify_batches(
                                   name="classify-batch-feeder")
         feeder.start()
 
-        def iter_fed() -> Iterator[BuiltBatch]:
+        def iter_fed() -> Iterator[tuple]:
             while True:
                 item = feed.get()
                 if item is None:
@@ -233,13 +286,14 @@ def classify_batches(
         batches = iter_fed()
 
     def drain_one() -> Iterator[ReadResult]:
-        ids, packed = pending.popleft()
-        out = unpack_call_table(packed)  # ONE device→host copy per batch
+        entry = pending.popleft()
+        out = unpack_call_table(entry.packed)  # ONE device→host copy per batch
+        entry.release_if_uploaded(wait=True)
         calls = out.calls.tolist()
         start_calls = out.start_calls.tolist()
         end_calls = out.end_calls.tolist()
-        stats.reads += len(ids)
-        for i, read_id in enumerate(ids):
+        stats.reads += len(entry.ids)
+        for i, read_id in enumerate(entry.ids):
             yield ReadResult(
                 read_id=read_id,
                 call=calls[i],
@@ -249,20 +303,41 @@ def classify_batches(
                 end_probs=out.end_probs[i],
             )
 
+    def release_queued() -> None:
+        """Give back the slots of batches fed but never dispatched."""
+        while True:
+            try:
+                item = feed.get_nowait()
+            except queue.Empty:
+                return
+            if item is not None and len(item) > 5:
+                item[5]()
+
     try:
-        for ids, s, sl, e, el in batches:
-            packed = (program.call_packed(s, sl, e, el) if dual
-                      else program.call_packed(s, sl))
-            pending.append((ids, packed))
+        for batch in batches:
+            ids, start, start_len, end, end_len = batch[:5]
+            release = batch[5] if len(batch) > 5 else None
+            uploaded = program.upload(start, start_len, end, end_len)
+            event = _upload_event(program.device) if release is not None else None
+            pending.append(_Pending(ids, program.call_packed(*uploaded),
+                                    release, event))
             stats.batches += 1
+            for entry in pending:
+                entry.release_if_uploaded()
             if len(pending) >= in_flight:
                 yield from drain_one()
         while pending:
             yield from drain_one()
     finally:
         stop.set()
+        # Slots go back before the feeder is joined: a feeder waiting on the
+        # pool for its next batch needs the workers to find a free slot.
+        for entry in pending:
+            entry.release_if_uploaded(wait=True)
+        release_queued()
         if feeder is not None:
             feeder.join()
+        release_queued()
         close = getattr(source, "close", None)
         if close is not None:
             close()

@@ -1,0 +1,634 @@
+"""Reader worker processes: fast5/pod5 decode and batch assembly off the
+classify process.
+
+Counterpart of ``deepbinner_tpu/runner/mp_reader.py``.  Workers are
+spawned, not forked (the parent has live CUDA and feeder threads), and
+import only the port's numpy-only modules (``runner/hostbatch.py``,
+``utils/fast5.py``, ``utils/pod5.py``, ``native/*``): never ``torch``,
+whose import each spawned child would pay for.
+
+In batch mode (a :class:`BatchSpec`) each worker assembles fixed-shape
+batches itself, running the open-pore trim and the wire quantisation when
+the spec asks for them, and reads only the head (and, dual, the tail) of
+each signal that a batch uses.  With ``shm_slots`` the batches travel
+through shared memory (:class:`_ShmRing`): a worker builds a batch straight
+into a free slot and the queue carries only (slot, read ids).  On a CUDA
+program the parent registers each slot as pinned memory once, when the ring
+is built (``cudaHostRegister``), so a batch goes to the card straight from
+its slot; ``close()`` unregisters the slots before the segments are closed
+and unlinked.  A worker never touches CUDA.
+
+:class:`ReaderPool` keeps its workers alive across passes (each pass is one
+call of ``iter_batches`` or ``iter_reads``), so spawn and import are paid
+once.  A worker that dies raises in the parent.
+"""
+
+from __future__ import annotations
+
+import functools
+import multiprocessing as mp
+import queue as queue_mod
+import sys
+import threading
+import time
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from deepbinner_tpu_torch.runner.hostbatch import (
+    BatchScratch,
+    BatchSpec,
+    ExecutorStats,
+    build_batch_arrays,
+)
+
+# Control messages are tuples tagged with this marker so they can never
+# collide with a data item and survive queue pickling.  Data items carry a
+# pass id so a pass abandoned mid-drain can't leak stale reads into the next.
+_CTL = "__deepbinner_ctl__"
+_STOP = (_CTL, "stop")
+# Batch-mode items shipped via shared memory carry this tag instead of the
+# inline arrays: (pass_id, _SHM, slot_index, ids).
+_SHM = "__deepbinner_shm__"
+# How often the parent, waiting on the workers, checks that they are alive.
+_POLL_S = 0.5
+
+
+class _ShmRing:
+    """Fixed slots of shared memory for batch buffers + a free-slot queue.
+
+    The multiprocessing queue then carries only (slot index, read ids):
+    workers write the built arrays straight into the slot (no pickle of
+    multi-MB payloads), the consumer uploads or copies them out and
+    recycles the slot.  ``pin=True`` registers every slot with CUDA as
+    pinned host memory, once (the parent only).
+    """
+
+    def __init__(self, ctx, spec: BatchSpec, slots: int, pin: bool = False) -> None:
+        from multiprocessing import shared_memory
+
+        self.spec = spec
+        b = spec.batch_size
+        self.sig_bytes = b * spec.wire_row_bytes
+        self.len_bytes = b * 4            # int32
+        per_end = self.sig_bytes + self.len_bytes
+        self.slot_bytes = per_end * (2 if spec.dual else 1)
+        self.slots = [
+            shared_memory.SharedMemory(create=True, size=self.slot_bytes)
+            for _ in range(slots)
+        ]
+        self.names = [s.name for s in self.slots]
+        self.free: "mp.Queue" = ctx.Queue()
+        for index in range(slots):
+            self.free.put(index)
+        self._registered: List[int] = []
+        if pin:
+            try:
+                self._register()
+            except BaseException:
+                self.close()
+                raise
+
+    def _register(self) -> None:
+        import torch
+
+        torch.cuda.init()
+        cudart = torch.cuda.cudart()
+        for memory in self.slots:
+            address = np.frombuffer(memory.buf, np.uint8).ctypes.data
+            error = cudart.cudaHostRegister(address, self.slot_bytes, 0)
+            if error != cudart.cudaError.success:
+                raise RuntimeError(f"cudaHostRegister of a reader slot "
+                                   f"failed: {error}")
+            self._registered.append(address)
+
+    def _unregister(self) -> None:
+        if not self._registered:
+            return
+        import torch
+
+        cudart = torch.cuda.cudart()
+        for address in self._registered:
+            cudart.cudaHostUnregister(address)
+        self._registered = []
+
+    @property
+    def pinned(self) -> bool:
+        return bool(self._registered)
+
+    def views(self, memory) -> tuple:
+        """(start, start_len, end, end_len) numpy views over one slot.
+
+        The views hold an export of the slot's mapping (through
+        ``np.frombuffer``), so the mapping cannot be closed under them;
+        over ``memory.buf`` directly numpy would keep only the mmap object
+        and ``close()`` would unmap it under live views.
+        """
+        return _slot_views(np.frombuffer(memory.buf, np.uint8), self.spec)
+
+    def close(self) -> None:
+        """Unregister, unmap and unlink every slot.
+
+        A slot whose views a consumer still holds cannot be unmapped
+        (``BufferError``): its mapping stays until the views are dropped,
+        and its name is unlinked all the same.
+        """
+        self._unregister()
+        for memory in self.slots:
+            try:
+                memory.close()
+            except BufferError:
+                pass
+            try:
+                memory.unlink()
+            except FileNotFoundError:
+                pass
+
+
+def _slot_views(buffer, spec: BatchSpec) -> tuple:
+    """(start, start_len, end, end_len) ndarray views over one slot buffer.
+
+    THE single definition of the slot byte layout — used by the parent
+    (`_ShmRing.views`, over `SharedMemory.buf`) and the workers
+    (`emit_batch`, over the raw mmap).  A layout described twice would
+    corrupt batches silently on the first divergence."""
+    b, cols = spec.batch_size, spec.wire_cols
+    sig_np = spec.wire_np
+    sig_bytes = b * spec.wire_row_bytes
+    len_bytes = b * 4
+    o = 0
+    start = np.ndarray((b, cols), sig_np, buffer=buffer, offset=o)
+    o += sig_bytes
+    start_len = np.ndarray((b,), np.int32, buffer=buffer, offset=o)
+    o += len_bytes
+    if not spec.dual:
+        return start, start_len, None, None
+    end = np.ndarray((b, cols), sig_np, buffer=buffer, offset=o)
+    o += sig_bytes
+    end_len = np.ndarray((b,), np.int32, buffer=buffer, offset=o)
+    return start, start_len, end, end_len
+
+
+def _attach_slots(names):
+    """Child-side attach via raw mmap of the POSIX shm files.
+
+    Children must NOT construct `SharedMemory(name=...)` when avoidable:
+    each attach registers the name with the (shared) resource tracker
+    whose cache is a set, so parent + N children produce one register
+    entry but N+1 unregisters — a KeyError traceback in the tracker at
+    exit.  Plain mmap of /dev/shm/<name> sidesteps the tracker entirely;
+    the parent alone owns create/unlink.  Hosts without /dev/shm (macOS)
+    fall back to SharedMemory + best-effort unregister."""
+    import mmap
+
+    slots = []
+    for name in names:
+        try:
+            with open(f"/dev/shm/{name.lstrip('/')}", "r+b") as handle:
+                slots.append(mmap.mmap(handle.fileno(), 0))
+        except OSError:
+            from multiprocessing import resource_tracker, shared_memory
+
+            memory = shared_memory.SharedMemory(name=name)
+            try:
+                resource_tracker.unregister(memory._name, "shared_memory")  # noqa: SLF001
+            except Exception:  # noqa: BLE001 — tracker API varies by version
+                pass
+            _ATTACHED_SEGMENTS.append(memory)  # keep the mapping alive
+            slots.append(memory.buf)
+    return slots
+
+
+# Child-side keepalive for the SharedMemory fallback in _attach_slots:
+# np.ndarray views into `memory.buf` do not hold the SharedMemory object,
+# and a GC'd SharedMemory unmaps the segment under the views.
+_ATTACHED_SEGMENTS: list = []
+
+
+def _trim_signal(signal: np.ndarray, head: int, tail: int) -> np.ndarray:
+    """Keep only the slices classify consumes (see hostbatch.build_batch_arrays).
+
+    A batch uses ``signal[:n]`` and ``signal[-n:]`` with
+    ``n = min(signal.size, buffer)``.  For ``head = tail = buffer`` and
+    ``signal.size > head + tail``, the concatenation of the first ``head``
+    and last ``tail`` samples preserves both slices AND keeps
+    ``min(size, buffer)`` unchanged — so batches built from trimmed reads
+    are bit-identical to batches built from full reads.
+    """
+    if head <= 0:
+        return signal
+    if tail > 0:
+        if signal.size > head + tail:
+            return np.concatenate([signal[:head], signal[-tail:]])
+        return signal
+    return signal[:head] if signal.size > head else signal
+
+
+def _pool_worker(
+    task_queue: "mp.Queue",
+    out_queue: "mp.Queue",
+    use_native: bool,
+    trim_head: int,
+    trim_tail: int,
+    batch_spec: Optional[BatchSpec],
+    shm_names: Optional[List[str]] = None,
+    shm_free: Optional["mp.Queue"] = None,
+) -> None:
+    # Imported inside the child: file decode only, no torch.
+    from deepbinner_tpu_torch.utils.fast5 import read_signal_file
+
+    shm_slots = _attach_slots(shm_names) if shm_names else None
+
+    fast5_fn = None
+    if use_native:  # the parent has built the library (ReaderPool.__init__)
+        from deepbinner_tpu_torch.native import fast5_reader
+
+        fast5_fn = fast5_reader.read_file
+
+    # Decode only the signal slices classify consumes: the head buffer
+    # (and, dual, the tail buffer) per read — HDF5 hyperslab reads skip
+    # the bulk of long reads entirely.  Batch mode derives the bound from
+    # the BatchSpec; stream mode uses the caller's trim_head/trim_tail.
+    if batch_spec is not None:
+        head = (batch_spec.trim.raw_size if batch_spec.trim is not None
+                else batch_spec.buffer_size)
+        tail = head if batch_spec.dual else 0
+    else:
+        head, tail = trim_head, trim_tail
+
+    def read_file(path: str):
+        # pod5 decodes through pyarrow/zstd and honours head/tail
+        # chunk-lazily; the native C++ reader covers the HDF5 (fast5) path.
+        if fast5_fn is not None and not path.endswith(".pod5"):
+            return fast5_fn(path, head, tail)
+        return read_signal_file(path, head, tail)
+
+    pending: List[Tuple[str, np.ndarray]] = []
+    # Persistent assembly temporaries: a worker builds many batches; the
+    # trim matrix / int16 build target / f32 quantise temp are allocated
+    # once here instead of per batch.
+    scratch = BatchScratch(batch_spec) if batch_spec is not None else None
+
+    def emit_batch(pass_id: int) -> None:
+        if shm_slots is None:
+            batch = build_batch_arrays(pending, batch_spec, scratch=scratch)
+            pending.clear()
+            out_queue.put((pass_id,) + batch)
+            return
+        # Shared-memory transport: assemble (and, int8, quantise) the
+        # batch DIRECTLY into a free slot's views.  The queue carries only
+        # (slot, ids).  Blocks while every slot is in flight — the same
+        # backpressure a bounded queue gives.
+        slot = shm_free.get()
+        views = _slot_views(shm_slots[slot], batch_spec)
+        ids, *_arrays = build_batch_arrays(pending, batch_spec, out=views,
+                                           scratch=scratch)
+        pending.clear()
+        out_queue.put((pass_id, _SHM, slot, ids))
+
+    while True:
+        task = task_queue.get()
+        if isinstance(task, tuple) and task and task[0] == _CTL:
+            if task == _STOP:
+                return
+            if task[1] == "flush":
+                # All output from this worker's earlier tasks is already on
+                # out_queue (single consumer per worker, FIFO queues), so the
+                # ack marks this worker's share of the pass complete.  In
+                # batch mode the leftover reads go out as one padded partial
+                # batch first.
+                if pending:
+                    emit_batch(task[2])
+                out_queue.put((_CTL, "flush", task[2]))
+            elif task[1] == "modules":
+                out_queue.put((_CTL, "modules", task[2], sorted(sys.modules)))
+            continue
+        # Tasks carry a CHUNK of paths, not one: an mp.Queue get is a lock
+        # + pipe wakeup, and per-file tasks leave workers idle on
+        # single-read fast5s.
+        pass_id, paths = task
+        for path in paths:
+            error = ""
+            try:
+                reads = read_file(path)
+            except Exception as exc:  # noqa: BLE001 — skip-and-count
+                reads = []
+                error = repr(exc)
+            if not reads:
+                out_queue.put((_CTL, "failed", pass_id, path, error))
+                continue
+            if batch_spec is not None:
+                for item in reads:
+                    pending.append(item)
+                    if len(pending) == batch_spec.batch_size:
+                        emit_batch(pass_id)
+            else:
+                # Stream mode carries the source path so consumers that
+                # act on FILES can map reads back without re-reading them.
+                for read_id, signal in reads:
+                    out_queue.put((pass_id, read_id,
+                                   _trim_signal(signal, trim_head, trim_tail),
+                                   path))
+
+
+class ReaderPool:
+    """Persistent fast5/pod5 decode worker pool (processes without torch).
+
+    Each worker owns a private task queue (round-robin path distribution)
+    so the per-pass flush protocol is exact: a worker acks one flush per
+    pass, after all its reads are enqueued.  Use as a context manager, or
+    call close().
+
+    ``use_native`` decodes fast5 through the C++ reader where it can be
+    built (the parent builds it here, so a failed build raises here).
+    ``pin_memory`` registers the shared-memory slots with CUDA as pinned
+    memory (a CUDA program's pool).
+    """
+
+    def __init__(
+        self,
+        num_workers: int = 2,
+        queue_depth: int = 1024,
+        use_native: bool = True,
+        trim_head: int = 0,
+        trim_tail: int = 0,
+        batch_spec: Optional[BatchSpec] = None,
+        stall_timeout: float = 300.0,
+        shm_slots: int = 0,
+        pin_memory: bool = False,
+    ) -> None:
+        self.num_workers = max(1, int(num_workers))
+        self.stall_timeout = stall_timeout
+        self.batch_spec = batch_spec
+        if use_native:
+            from deepbinner_tpu_torch.native import fast5_reader
+
+            use_native = fast5_reader.available()
+        self.use_native = use_native
+        ctx = mp.get_context("spawn")
+        # Batch mode ships ~MB items; a deep queue would buffer the whole
+        # dataset in pickled form. 4 in-flight batches per worker is plenty.
+        if batch_spec is not None:
+            queue_depth = min(queue_depth, 4 * self.num_workers)
+        # Optional shared-memory batch transport (batch mode only): slots
+        # replace the pickled multi-MB queue items (see _ShmRing).
+        self._ring: Optional[_ShmRing] = None
+        if shm_slots > 0 and batch_spec is not None:
+            self._ring = _ShmRing(ctx, batch_spec, shm_slots, pin=pin_memory)
+        self._tasks: List["mp.Queue"] = [ctx.Queue() for _ in range(self.num_workers)]
+        self._out: "mp.Queue" = ctx.Queue(maxsize=queue_depth)
+        self._workers = [
+            ctx.Process(
+                target=_pool_worker,
+                args=(self._tasks[i], self._out, use_native, trim_head,
+                      trim_tail, batch_spec,
+                      self._ring.names if self._ring else None,
+                      self._ring.free if self._ring else None),
+                daemon=True,
+                name=f"deepbinner-reader-{i}",
+            )
+            for i in range(self.num_workers)
+        ]
+        for worker in self._workers:
+            worker.start()
+        self._closed = False
+        self._pass_id = 0
+        # Slots handed out by iter_batches(copy=False) and not yet released
+        # by the consumer.  Guarded by a lock: the classify feeder thread
+        # adds while the drain (main) thread releases.
+        self._held_lock = threading.Lock()
+        self._held: set = set()
+
+    @property
+    def pinned(self) -> bool:
+        """Whether the shared-memory slots are registered as pinned memory."""
+        return self._ring is not None and self._ring.pinned
+
+    def _release_slot(self, slot: int) -> None:
+        """Recycle a zero-copy slot once its upload has provably completed.
+
+        Idempotent (a slot released twice must not enter the free queue
+        twice — a double-free would let two workers write one slot).
+        """
+        with self._held_lock:
+            if slot not in self._held:
+                return
+            self._held.discard(slot)
+        self._ring.free.put(slot)
+
+    def _reclaim_held_slots(self) -> None:
+        """Recycle slots an abandoned pass yielded but never released.
+
+        Called at pass start and close: if a consumer tore down mid-pass
+        (exception between yield and release), its held slots would
+        otherwise starve every later pass.  By the time a NEW pass starts
+        the previous consumer is gone, so the views are dead."""
+        if self._ring is None:
+            return
+        with self._held_lock:
+            leftover, self._held = self._held, set()
+        for slot in leftover:
+            self._ring.free.put(slot)
+
+    def _get(self) -> tuple:
+        """The next item from the workers.
+
+        Raises when a worker has died or nothing arrives for
+        ``stall_timeout`` seconds.
+        """
+        waited = 0.0
+        while True:
+            try:
+                return self._out.get(timeout=_POLL_S)
+            except queue_mod.Empty:
+                pass
+            for worker in self._workers:
+                if not worker.is_alive():
+                    raise RuntimeError(f"reader worker {worker.name} exited "
+                                       f"(code {worker.exitcode})")
+            waited += _POLL_S
+            if waited >= self.stall_timeout:
+                raise RuntimeError(f"reader pool stalled (no reads for "
+                                   f"{self.stall_timeout:.0f}s)")
+
+    def _discard_stale(self, item: tuple) -> None:
+        """Drop an item of an abandoned pass, recycling its slot."""
+        if (self._ring is not None and item[0] != _CTL and len(item) > 1
+                and item[1] == _SHM):
+            self._ring.free.put(item[2])
+
+    def _next_pass(self) -> int:
+        if self._closed:
+            raise RuntimeError("ReaderPool is closed")
+        self._reclaim_held_slots()
+        self._pass_id += 1
+        return self._pass_id
+
+    def _drain_pass(
+        self,
+        fast5_paths: Sequence[str],
+        stats: ExecutorStats,
+    ) -> Iterator[tuple]:
+        """Feed one pass and yield raw data payloads in completion order."""
+        pass_id = self._next_pass()
+        # Chunked round-robin distribution: small chunks keep the load
+        # balanced across workers; ≥8 chunks per worker on big passes,
+        # per-file granularity on tiny ones.
+        chunk = max(1, min(32, len(fast5_paths) // (8 * self.num_workers)))
+        for k, start in enumerate(range(0, len(fast5_paths), chunk)):
+            self._tasks[k % self.num_workers].put(
+                (pass_id, list(fast5_paths[start : start + chunk]))
+            )
+        for task_queue in self._tasks:
+            task_queue.put((_CTL, "flush", pass_id))
+        acks = 0
+        while acks < self.num_workers:
+            item = self._get()
+            if item[0] == _CTL:
+                if item[2] != pass_id:  # stale control from an abandoned pass
+                    continue
+                if item[1] == "flush":
+                    acks += 1
+                elif item[1] == "failed":  # ("failed", pass_id, path, error)
+                    stats.record_failure(item[3], item[4])
+                continue
+            if item[0] != pass_id:  # stale data from an abandoned pass
+                self._discard_stale(item)
+                continue
+            yield item[1:]
+
+    def worker_modules(self) -> List[List[str]]:
+        """Each worker's loaded module names (the workers must not import
+        torch)."""
+        pass_id = self._next_pass()
+        for task_queue in self._tasks:
+            task_queue.put((_CTL, "modules", pass_id))
+        replies: List[List[str]] = []
+        while len(replies) < self.num_workers:
+            item = self._get()
+            if item[0] == _CTL and item[1] == "modules" and item[2] == pass_id:
+                replies.append(item[3])
+            else:
+                self._discard_stale(item)
+        return replies
+
+    def iter_reads(
+        self,
+        fast5_paths: Sequence[str],
+        stats: Optional[ExecutorStats] = None,
+    ) -> Iterator[Tuple[str, np.ndarray]]:
+        """One pass: yield (read_id, int16 signal) in completion order."""
+        for read_id, signal, _path in self.iter_reads_with_paths(
+            fast5_paths, stats
+        ):
+            yield read_id, signal
+
+    def iter_reads_with_paths(
+        self,
+        fast5_paths: Sequence[str],
+        stats: Optional[ExecutorStats] = None,
+    ) -> Iterator[Tuple[str, np.ndarray, str]]:
+        """One pass: yield (read_id, int16 signal, source path)."""
+        if self.batch_spec is not None:
+            raise RuntimeError("pool is in batch mode; use iter_batches")
+        for read_id, signal, path in self._drain_pass(fast5_paths,
+                                                      stats or ExecutorStats()):
+            yield read_id, signal, path
+
+    def iter_batches(
+        self,
+        fast5_paths: Sequence[str],
+        stats: Optional[ExecutorStats] = None,
+        copy: bool = True,
+    ) -> Iterator[tuple]:
+        """One pass: yield worker-built fixed-shape batches.
+
+        Full batches stream as they fill; each worker's leftover reads
+        arrive as one padded partial batch at pass end (rows beyond
+        len(ids) are padding, dropped downstream).
+
+        ``copy=False`` (the classify hot path): shared-memory batches are
+        yielded as ``(ids, start, start_len, end, end_len, release)``
+        where the arrays are VIEWS straight over the slot and
+        ``release()`` recycles the slot.  Call it only once the batch's
+        upload has completed (``executor.classify_batches`` waits on a CUDA
+        event recorded after the upload).  The consumer must keep enough
+        slots configured to cover its in-flight window
+        (``executor.MIN_SHM_SLOTS``) or workers block on the free queue
+        until the pass stall-times-out.  Slots never released (abandoned
+        pass) are reclaimed at the next pass / close.
+        """
+        if self.batch_spec is None:
+            raise RuntimeError("pool was not built with a batch_spec")
+        for payload in self._drain_pass(fast5_paths, stats or ExecutorStats()):
+            if self._ring is not None and payload and payload[0] == _SHM:
+                _tag, slot, ids = payload
+                views = self._ring.views(self._ring.slots[slot])
+                if copy:
+                    batch = (ids, views[0].copy(), views[1].copy(),
+                             views[2].copy() if views[2] is not None else None,
+                             views[3].copy() if views[3] is not None else None)
+                    del views
+                    self._ring.free.put(slot)  # recycle now (copied out)
+                    yield batch
+                else:
+                    with self._held_lock:
+                        self._held.add(slot)
+                    yield (ids, views[0], views[1], views[2], views[3],
+                           functools.partial(self._release_slot, slot))
+            else:
+                yield payload
+
+    def close(self) -> None:
+        """Stop the workers and free the slots.
+
+        Workers blocked on a full out queue or on the free-slot queue are
+        unblocked by draining the out queue while they stop; one still
+        alive after a few seconds (e.g. busy with an abandoned pass's
+        files) is terminated.
+        """
+        if self._closed:
+            return
+        self._closed = True
+        self._reclaim_held_slots()
+        for task_queue in self._tasks:
+            task_queue.put(_STOP)
+        deadline = time.monotonic() + 5.0
+        while (any(worker.is_alive() for worker in self._workers)
+               and time.monotonic() < deadline):
+            try:
+                self._discard_stale(self._out.get(timeout=0.05))
+            except queue_mod.Empty:
+                pass
+        for worker in self._workers:
+            if worker.is_alive():
+                worker.terminate()
+            worker.join(timeout=5)
+        for task_queue in self._tasks:
+            task_queue.cancel_join_thread()
+        if self._ring is not None:
+            self._ring.free.cancel_join_thread()
+            self._ring.close()
+
+    def __enter__(self) -> "ReaderPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def iter_signals_mp(
+    fast5_paths: Sequence[str],
+    num_workers: int = 2,
+    queue_depth: int = 1024,
+    stats: Optional[ExecutorStats] = None,
+    use_native: bool = True,
+    trim_head: int = 0,
+    trim_tail: int = 0,
+) -> Iterator[Tuple[str, np.ndarray]]:
+    """One-shot convenience: pool → one pass → close."""
+    with ReaderPool(
+        num_workers=num_workers, queue_depth=queue_depth, use_native=use_native,
+        trim_head=trim_head, trim_tail=trim_tail,
+    ) as pool:
+        yield from pool.iter_reads(fast5_paths, stats=stats)

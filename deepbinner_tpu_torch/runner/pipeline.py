@@ -8,12 +8,17 @@ runs one of the kernel compositions of
 :mod:`~deepbinner_tpu_torch.models.kernel_apply`, chosen by
 ``ClassifyConfig.kernel_path``; on the CPU the same composition runs each
 kernel's plain version.
+
+The reference computes in f32, so every call of the program runs with TF32
+off for cuBLAS and cuDNN (:func:`full_f32`), whatever the host program has
+set, and gives the caller's settings back afterwards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,6 +147,39 @@ def unpack_call_table(packed) -> CallTable:
     )
 
 
+def _read_flag(read):
+    try:
+        return read()
+    except RuntimeError:  # the caller mixed torch's two TF32 interfaces
+        return None
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """TF32 off for cuBLAS and cuDNN inside; the caller's settings after.
+
+    Both flags are process-wide, so they are set and given back around each
+    call rather than once.  The matmul setting is given back through
+    ``torch.set_float32_matmul_precision`` where it reads as one of its
+    levels ("medium" does not survive a round trip through the flag).
+    """
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    precision = _read_flag(torch.get_float32_matmul_precision)
+    allow_matmul = _read_flag(lambda: matmul.allow_tf32)
+    allow_cudnn = _read_flag(lambda: cudnn.allow_tf32)
+    matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if allow_cudnn is not None:
+            cudnn.allow_tf32 = allow_cudnn
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+        elif allow_matmul is not None:
+            matmul.allow_tf32 = allow_matmul
+
+
 class ClassifyProgram:
     """A classify step bound to its model(s), config and device.
 
@@ -169,24 +207,36 @@ class ClassifyProgram:
         if array is None:
             return None
         tensor = torch.as_tensor(array)
-        if self.device.type == "cuda" and tensor.device.type == "cpu":
+        # Host memory that is already pinned (a reader pool's registered
+        # shared-memory slot) goes to the card as it is; anything else is
+        # staged through a pinned copy so that the upload is asynchronous.
+        if (self.device.type == "cuda" and tensor.device.type == "cpu"
+                and not tensor.is_pinned()):
             tensor = tensor.pin_memory()
         return tensor.to(self.device, non_blocking=True)
 
+    def upload(self, start_signal, start_lengths, end_signal=None,
+               end_lengths=None) -> Tuple[Optional[torch.Tensor], ...]:
+        """One batch's arrays on the device, enqueued on the current stream
+        (the host memory of pinned arrays is read until the copies are
+        done)."""
+        return tuple(self._upload(a) for a in (start_signal, start_lengths,
+                                               end_signal, end_lengths))
+
     def __call__(self, start_signal, start_lengths, end_signal=None,
                  end_lengths=None) -> CallTable:
-        with torch.inference_mode():
+        with full_f32(), torch.inference_mode():
             return classify_step(
                 self.cfg, self.start_net, self.end_net,
-                self._upload(start_signal), self._upload(start_lengths),
-                self._upload(end_signal), self._upload(end_lengths),
+                *self.upload(start_signal, start_lengths, end_signal,
+                             end_lengths),
             )
 
     def call_packed(self, start_signal, start_lengths, end_signal=None,
                     end_lengths=None) -> torch.Tensor:
         """The CallTable packed into one (B, 3+2C) f32 tensor on the device;
         the streaming executor unpacks it with :func:`unpack_call_table`."""
-        with torch.inference_mode():
+        with full_f32(), torch.inference_mode():
             return pack_call_table(
                 self(start_signal, start_lengths, end_signal, end_lengths))
 
@@ -197,8 +247,5 @@ class ClassifyProgram:
         wire = np.int8 if pre.wire in ("int8", "int4") else np.int16
         sig = np.zeros((batch_size, pre.wire_cols), wire)
         lengths = np.full((batch_size,), pre.buffer_size, np.int32)
-        if self.cfg.dual_model:
-            out = self.call_packed(sig, lengths, sig, lengths)
-        else:
-            out = self.call_packed(sig, lengths)
-        out.cpu()
+        ends = (sig, lengths) if self.cfg.dual_model else ()
+        self.call_packed(sig, lengths, *ends).cpu()

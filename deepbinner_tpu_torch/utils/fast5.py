@@ -6,8 +6,10 @@ albacore-era *single-read* layout ``Raw/Reads/Read_*/Signal`` with the read id
 in the ``read_id`` attribute.  The rebuild also understands the *multi-read*
 layout (``/read_<uuid>/Raw/Signal``) so modern MinKNOW output works.
 
-The port reads through h5py only; the JAX package's C++ libhdf5 batch
-reader is not ported yet.
+This module reads through h5py.  The C++ reader of
+:mod:`deepbinner_tpu_torch.native.fast5_reader` reads the same layouts
+through the HDF5 runtime library without h5py; `classify` uses it where it
+can be built (``--native_reader`` / ``--no_native_reader``).
 
 Writing (:func:`write_single_read_fast5`) exists for fixtures, the signal
 simulator, and tests; the reference never writes fast5s.

@@ -129,6 +129,12 @@ def vbz_decompress(payload: bytes, sample_count: int) -> np.ndarray:
         ctx = _ZSTD.ctx = zstandard.ZstdDecompressor()
     max_size = (sample_count + 7) // 8 + 2 * sample_count
     raw = ctx.decompress(payload, max_output_size=max(max_size, 1))
+    # One fused C pass where it can be built (native/vbz.py); the numpy
+    # chain below stays its oracle (tests/test_torch_native.py).
+    from deepbinner_tpu_torch.native import vbz as native_vbz
+
+    if native_vbz.available():
+        return native_vbz.unpack(raw, sample_count)
     delta = _zigzag_decode(svb16_decode(raw, sample_count))
     # int64 cumsum then int16 cast == wrapping int16 prefix sum
     return np.cumsum(delta.astype(np.int64)).astype(np.int16)

@@ -83,10 +83,60 @@ def test_plain_table_byte_identical(datasets, models, capsys, container, dual):
 
 @pytest.mark.parametrize("extra", [("--wire", "int16"), ("--wire", "int4"),
                                    ("--device_trim",), ("--combine", "best"),
-                                   ("--min_score", "0", "--score_diff", "0")])
+                                   ("--min_score", "0", "--score_diff", "0"),
+                                   ("--native_reader",), ("--no_native_reader",)])
 def test_options_byte_identical(datasets, models, capsys, extra):
     got, want = _both(datasets["fast5"][0], models, capsys, extra=extra)
     assert got == want
+
+
+@pytest.mark.parametrize("container,dual", [
+    ("fast5", False), ("fast5", True), ("multifast5", False), ("pod5", True),
+])
+def test_reader_processes_byte_identical(datasets, models, capsys, container,
+                                         dual):
+    """--reader_processes 2: worker processes decode the files and build
+    the batches, handed over in shared-memory slots; the JAX CLI reads with
+    its threads (one for pod5, fault R1)."""
+    directory, truth = datasets[container]
+    argv = ["classify", str(directory), "-s", models[0], *GEOMETRY]
+    if dual:
+        argv += ["-e", models[1]]
+    want = _run(jax_main, argv + ["--num_readers", "1"], capsys)
+    got = _run(port_main, argv + ["--device", "cpu", "--reader_processes", "2",
+                                  "--shm_slots", "3"], capsys)
+    assert got == want
+    assert len(got.splitlines()) == len(truth) + 1
+
+
+def test_abandoned_pool_pass_leaves_no_worker(datasets, models, capsys):
+    """Fault R2 for the pool: a pass abandoned mid-stream drops no read of
+    the next pass, and close() leaves no worker alive."""
+    from deepbinner_tpu_torch.cli.classify import StreamRunner, build_program
+    from deepbinner_tpu_torch.cli.main import get_arguments
+
+    directory, truth = datasets["fast5"]
+    args = get_arguments(["classify", str(directory), "-s", models[0],
+                          "--scan_size", "768", "--batch_size", "2",
+                          "--device", "cpu", "--reader_processes", "2",
+                          "--shm_slots", "6"])
+    program, _ = build_program(args)
+    stats = executor.ExecutorStats()
+    runner = StreamRunner(program, args, stats)
+    files = find_signal_files(directory)
+    try:
+        assert runner.pool is not None and not runner.pool.pinned
+        results = runner.classify(files)
+        next(results)
+        results.close()
+        assert not any(t.name == "classify-batch-feeder" and t.is_alive()
+                       for t in threading.enumerate())
+        again = [r.read_id for r in runner.classify(files)]
+        assert sorted(again) == sorted(truth)
+    finally:
+        runner.close()
+    assert not any(worker.is_alive() for worker in runner.pool._workers)
+    capsys.readouterr()
 
 
 @pytest.mark.parametrize("dual", [False, True])

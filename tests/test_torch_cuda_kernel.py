@@ -8,6 +8,8 @@ that has only PyTorch:
     python -m pytest tests/test_torch_cuda_kernel.py --noconftest -q
 """
 
+import functools
+import multiprocessing as mp
 import os
 
 import numpy as np
@@ -33,7 +35,14 @@ from deepbinner_tpu_torch.ops.trunk_kernel import (
     trunk_segment,
     trunk_segment_reference,
 )
-from deepbinner_tpu_torch.runner.executor import classify_stream
+from deepbinner_tpu_torch.runner.executor import (
+    batch_spec_for,
+    build_batch,
+    classify_batches,
+    classify_stream,
+)
+from deepbinner_tpu_torch.runner.hostbatch import build_batch_arrays
+from deepbinner_tpu_torch.runner.mp_reader import _ShmRing
 from deepbinner_tpu_torch.runner.pipeline import ClassifyConfig, ClassifyProgram
 from deepbinner_tpu_torch.utils import simulate
 
@@ -300,3 +309,91 @@ def test_program_on_the_card_matches_the_cpu(cuda_device):
         got = results["cuda"][read_id]
         assert got.call == want.call, read_id
         np.testing.assert_allclose(got.start_probs, want.start_probs, atol=1e-4)
+
+
+def _tiny_program(device, batch_size=4):
+    model, net_cfg, _meta = load_model(TINY_MODEL)
+    pre = PreprocessConfig(scan_size=768, window=net_cfg.input_length,
+                           stride=net_cfg.input_length // 2, trim_scan=512,
+                           host_trim=True, wire="int8")
+    program = ClassifyProgram(model, ClassifyConfig(pre, CallingConfig()),
+                              device=device)
+    return program, batch_spec_for(pre, batch_size, False)
+
+
+def test_tf32_setting_does_not_move_the_call_table(cuda_device):
+    """Fault F1: under torch.set_float32_matmul_precision("high") the packed
+    call table is bit-identical to the one at "highest", and the process
+    setting reads "high" again after the call."""
+    program, _spec = _tiny_program(cuda_device)
+    _ids, sig, lens, _e, _el = build_batch(_tiny_program_reads(),
+                                           program.cfg.preprocess, 16, False)
+    tables = {}
+    try:
+        for precision in ("high", "highest"):
+            torch.set_float32_matmul_precision(precision)
+            tables[precision] = program.call_packed(sig, lens).cpu()
+            assert torch.get_float32_matmul_precision() == precision
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert torch.equal(tables["high"], tables["highest"])
+
+
+def test_registered_slot_uploads_without_a_host_copy(cuda_device, monkeypatch):
+    program, spec = _tiny_program(cuda_device)
+    ring = _ShmRing(mp.get_context("spawn"), spec, 2, pin=True)
+    try:
+        views = ring.views(ring.slots[1])
+        build_batch_arrays(_tiny_program_reads()[:4], spec, out=views)
+        assert ring.pinned and torch.from_numpy(views[0]).is_pinned()
+
+        def no_copy(self, *args, **kwargs):
+            raise AssertionError("a registered slot was copied to pinned memory")
+
+        monkeypatch.setattr(torch.Tensor, "pin_memory", no_copy)
+        sig, lens, _e, _el = program.upload(*views)
+        torch.cuda.synchronize()
+        assert sig.device.type == "cuda"
+        assert torch.equal(sig.cpu(), torch.from_numpy(views[0].copy()))
+        assert torch.equal(lens.cpu(), torch.from_numpy(views[1].copy()))
+        del views
+    finally:
+        ring.close()
+    assert not ring.pinned
+
+
+def test_released_slots_overwritten_at_once_give_the_same_calls(cuda_device):
+    """Each slot is overwritten with 0x55 bytes the moment classify_batches
+    releases it: an early release would change a call or a probability."""
+    program, spec = _tiny_program(cuda_device)
+    reads = _tiny_program_reads() * 3
+    copied = [build_batch_arrays(reads[i:i + 4], spec)
+              for i in range(0, len(reads), 4)]
+    want = {r.read_id: r for r in classify_batches(program, iter(copied))}
+
+    ring = _ShmRing(mp.get_context("spawn"), spec, 2, pin=True)
+    released = []
+
+    def release(slot):
+        np.frombuffer(ring.slots[slot].buf, np.uint8)[:] = 0x55
+        released.append(slot)
+        ring.free.put(slot)
+
+    def batches():
+        for i in range(0, len(reads), 4):
+            slot = ring.free.get(timeout=60)
+            views = ring.views(ring.slots[slot])
+            ids, *_arrays = build_batch_arrays(reads[i:i + 4], spec, out=views)
+            yield (ids, *views, functools.partial(release, slot))
+
+    try:
+        got = {r.read_id: r for r in classify_batches(program, batches())}
+    finally:
+        ring.close()
+    assert len(released) == len(copied)
+    assert sorted(got) == sorted(want)
+    for read_id, w in want.items():
+        g = got[read_id]
+        assert (g.call, g.start_call, g.end_call) == (w.call, w.start_call,
+                                                      w.end_call)
+        np.testing.assert_array_equal(g.start_probs, w.start_probs)

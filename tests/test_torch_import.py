@@ -23,6 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(deepbinner_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import torch
+from deepbinner_tpu_torch.native import build
 try:
     deepbinner_tpu_torch.resolve_device(None)
     raised = False
@@ -35,6 +36,7 @@ print(json.dumps({
                                              "deepbinner_tpu")),
     "cuda": torch.cuda.is_available(),
     "resolve_raised": raised,
+    "native_loaded": build.loaded(),
 }))
 """
 
@@ -54,6 +56,9 @@ def test_port_imports_without_jax():
     assert "deepbinner_tpu_torch.ops.conv_kernel" in expected
     assert "deepbinner_tpu_torch.cli.classify" in expected
     assert result["foreign"] == []
+    assert "deepbinner_tpu_torch.runner.mp_reader" in expected
+    assert "deepbinner_tpu_torch.native.build" in expected
+    assert result["native_loaded"] == []  # importing builds nothing
     # The card is the default: without one, resolving the default raises.
     assert result["resolve_raised"] == (not result["cuda"])
 

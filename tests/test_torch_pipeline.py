@@ -185,3 +185,45 @@ def test_iter_signals_stops_readers_when_closed(tmp_path):
     gen.close()
     assert not any(t.name == "classify-reader" and t.is_alive()
                    for t in threading.enumerate())
+
+
+@pytest.mark.parametrize("setting", ["allow_tf32", "high", "medium"])
+def test_program_pins_tf32_off_and_gives_the_setting_back(weights, reads,
+                                                          monkeypatch, setting):
+    """Fault F1: whatever the host program set, the dense layer's call (and
+    so every matmul of the program) runs with TF32 off for cuBLAS and
+    cuDNN, and the caller's settings read as before after each call."""
+    _jax_program, program = _both_programs(weights, False, True, "int8", {})
+    _ids, sig, lengths, _e, _el = executor.build_batch(
+        reads[:8], program.cfg.preprocess, 8, False)
+    linear = torch.nn.functional.linear
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return linear(*args, **kwargs)
+
+    def settings():
+        return (torch.get_float32_matmul_precision(),
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    monkeypatch.setattr(torch.nn.functional, "linear", spy)
+    try:
+        if setting == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision(setting)
+        before = settings()
+        assert before[1] and before[2]
+        program(sig, lengths)
+        assert settings() == before
+        program.call_packed(sig, lengths)
+        assert settings() == before
+        program.warm_up(8)
+        assert settings() == before
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = True
+    assert len(seen) == 3 and set(seen) == {(False, False)}
