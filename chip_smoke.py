@@ -11,8 +11,9 @@ one JSON line per phase:
    versions, the kernel build time, and the probe of what the machine can
    read signal files with: which of ``h5py``, ``zstandard``, ``pyarrow``
    and ``flatbuffers`` import, what ``ctypes.util.find_library`` returns
-   for ``hdf5_serial``, ``hdf5`` and ``zstd``, and whether ``g++`` is on
-   the path.
+   for ``hdf5_serial``, ``hdf5`` and ``zstd``, the version of the zstd
+   library the port's ctypes binding loads, and whether ``g++`` is on the
+   path.
 2. ``kernel_unit`` / ``kernels``: the fused ConvBNReLU kernel (K1) at each
    of the 15 unit geometries of ``EXP-NBD103_read_starts.dbt`` at N = 2816
    windows (one 256-read batch), with its plan (``ops/conv_kernel.plan_unit``:
@@ -54,12 +55,29 @@ one JSON line per phase:
    calls must equal the ``classify`` phase's, with one release and 15 K1
    launches per batch.
 10. ``native``: the native fast5 reader (where the probe found g++ and an
-    HDF5 runtime; held against h5py where it imports) and the native vbz
-    unpacker (where g++ is found; held against the numpy path); a part the
-    machine cannot build prints ``ran: false`` with the probe's reason.
-11. ``cli``: the port's ``classify`` CLI on a small simulated fast5
-    directory, with reader threads and with ``--reader_processes 2``, when
-    ``h5py`` imports (it writes the files).
+    HDF5 runtime; held against h5py where it imports), the native vbz
+    unpacker (where g++ is found; held against the numpy path), and the
+    zstd binding (a vbz round trip of the same three signals through the
+    system libzstd); a part the machine cannot build prints ``ran: false``
+    with the probe's reason.
+11. ``cli``: the port's CLI on pod5 files written here: ``simulate``
+    writes 2048 reads in 8 pod5 containers, ``classify`` (start and end
+    models, batch 256) reads them once with reader threads and once with
+    the default worker pool, whose two tables must be byte-identical with
+    one row per read, and ``bin`` sorts ``reads.fastq`` by that table
+    twice, byte-identically, each read into the bin its row names.
+12. ``realtime``: 256 single-read pod5 files, moved into the watched
+    directory in drops of 64 every 0.5 s while ``realtime`` (the flagship
+    start model, the CLI defaults: 2 reader workers on the card, batch
+    256) polls every 0.2 s; every file must end in the bin that
+    ``classify`` gave its read, with 15 K1 launches per classified batch
+    (and per warm-up batch), and the seconds from each file's arrival to
+    its move are reported.
+13. ``processes``: once the phases end, passed or failed, every process
+    the run started that still runs is stopped: reader workers and any
+    other child are killed, and multiprocessing's resource tracker is
+    stopped and waited for.  A reader worker or other child still alive
+    at that point fails the run (a pool was left open).
 
 Any failure raises, so the script exits non-zero and prints no success
 line.  It needs a CUDA card and the repository's sources: without either it
@@ -75,6 +93,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -620,9 +639,11 @@ def phase_dual() -> None:
 def probe_readers() -> dict:
     """What this machine can read signal files with: fast5 needs h5py (or
     the native reader: g++ and an HDF5 runtime library), pod5 needs
-    pyarrow, flatbuffers and zstandard."""
+    pyarrow and the system zstd library (the port's ctypes binding)."""
     import ctypes.util
     import shutil
+
+    from deepbinner_tpu_torch.native import zstd
 
     imports = {}
     for name in ("h5py", "msgpack", "zstandard", "pyarrow", "flatbuffers"):
@@ -631,9 +652,14 @@ def probe_readers() -> dict:
             imports[name] = True
         except ImportError:
             imports[name] = False
+    try:
+        zstd_version = zstd.version()
+    except OSError as exc:
+        zstd_version = f"not loaded: {exc}"
     return {"imports": imports,
             "find_library": {name: ctypes.util.find_library(name)
                              for name in ("hdf5_serial", "hdf5", "zstd")},
+            "zstd_version": zstd_version,
             "gxx": shutil.which("g++")}
 
 
@@ -768,7 +794,7 @@ def phase_native(probe: dict) -> None:
     hold each against its Python path."""
     import numpy as np
 
-    from deepbinner_tpu_torch.native import build, fast5_reader, vbz
+    from deepbinner_tpu_torch.native import build, fast5_reader, vbz, zstd
     from deepbinner_tpu_torch.utils import pod5
 
     reason = build.missing("fast5_reader")
@@ -796,15 +822,15 @@ def phase_native(probe: dict) -> None:
     else:
         fast5 = {"ran": False, "reason": reason}
 
+    rng = np.random.default_rng(12)
+    cases = [rng.integers(300, 700, 102_400).astype(np.int16),
+             rng.integers(-32768, 32767, 4097).astype(np.int16),
+             np.asarray([-1, 1, -32768, 32767, 0], np.int16)]
     reason = build.missing("vbz_decode")
     if reason is None:
         start = time.perf_counter()
         vbz.available()  # builds; a failed build raises
         build_s = time.perf_counter() - start
-        rng = np.random.default_rng(12)
-        cases = [rng.integers(300, 700, 102_400).astype(np.int16),
-                 rng.integers(-32768, 32767, 4097).astype(np.int16),
-                 np.asarray([-1, 1, -32768, 32767, 0], np.int16)]
         for signal in cases:
             delta = np.diff(signal.astype(np.int32), prepend=0).astype(np.int16)
             raw = pod5.svb16_encode(pod5._zigzag_encode(delta))
@@ -818,50 +844,281 @@ def phase_native(probe: dict) -> None:
         vbz_line = {"ran": True, "build_s": build_s, "cases": len(cases)}
     else:
         vbz_line = {"ran": False, "reason": reason}
-    emit("native", fast5_reader=fast5, vbz_decode=vbz_line)
+    # The zstd stage through the system library (native/zstd.py): a full
+    # vbz round trip of the same signals.  A missing libzstd raises.
+    for signal in cases:
+        payload = pod5.vbz_compress(signal)
+        if not np.array_equal(pod5.vbz_decompress(payload, signal.size),
+                              signal):
+            raise AssertionError("native: a vbz round trip through libzstd "
+                                 "changed the signal")
+    zstd_line = {"ran": True, "version": zstd.version(), "cases": len(cases)}
+    emit("native", fast5_reader=fast5, vbz_decode=vbz_line, zstd=zstd_line)
+
+
+def _run_cli(argv) -> tuple:
+    """One call of the port's CLI: (stdout, stderr, seconds).  Its stderr
+    is echoed once the call returns or raises."""
+    from deepbinner_tpu_torch.cli.main import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli_main(argv)
+    finally:
+        sys.stderr.write(err.getvalue())
+    return out.getvalue(), err.getvalue(), time.perf_counter() - start
+
+
+def _cli_throughput(stderr: str) -> float:
+    """The reads/s that `classify` logs (its classify loop, model load
+    and program build excluded)."""
+    match = re.search(r"throughput: ([0-9.]+) reads/s", stderr)
+    if match is None:
+        raise AssertionError("classify logged no throughput line")
+    return float(match.group(1))
+
+
+def _check_pod5_readers(probe: dict, phase: str) -> None:
+    if not probe["imports"]["pyarrow"]:
+        raise RuntimeError(f"{phase}: pod5 needs pyarrow, which does not "
+                           f"import here")
+    if not probe["zstd_version"][:1].isdigit():
+        raise RuntimeError(f"{phase}: pod5 needs the system zstd library: "
+                           f"{probe['zstd_version']}")
 
 
 def phase_cli(probe: dict) -> None:
-    if not probe["imports"]["h5py"]:
-        emit("cli", ran=False,
-             reason="h5py does not import, so no fast5 can be written here; "
-                    "pod5 needs pyarrow, flatbuffers and zstandard "
-                    f"(imports: {probe['imports']})")
-        return
+    """simulate → classify (threads, then the worker pool) → bin through
+    the port's CLI, on pod5 files written here."""
+    import collections
     import shutil
 
-    from deepbinner_tpu_torch.cli.main import main as cli_main
-    from deepbinner_tpu_torch.utils import simulate
+    from deepbinner_tpu_torch.utils import seqio, table
 
-    data_dir = os.path.join(WORK_DIR, "fast5_dataset")
-    shutil.rmtree(data_dir, ignore_errors=True)
-    truth = simulate.make_dataset(data_dir, kit="EXP-NBD103",
-                                  reads_per_barcode=2, none_reads=4,
-                                  genome_length=1200, seed=5,
-                                  write_fastq=False)
-    tables, rates = {}, {}
+    _check_pod5_readers(probe, "cli")
+    root = os.path.join(WORK_DIR, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    _out, _err, simulate_s = _run_cli([
+        "simulate", root, "--container", "pod5", "--reads_per_barcode", "170",
+        "--none_reads", "8", "--genome_length", "1200", "--seed", "5"])
+    pod5_dir = os.path.join(root, "fast5s")
+    containers = sorted(os.listdir(pod5_dir))
+    truth = table.parse_classification_file(os.path.join(root, "truth.tsv"))
+    if len(truth) != 2048 or len(containers) != 8:
+        raise AssertionError(f"cli: simulate wrote {len(truth)} reads in "
+                             f"{len(containers)} containers")
+    tables, seconds, rates = {}, {}, {}
     for name, extra in (("threads", ["--reader_processes", "0"]),
-                        ("pool", ["--reader_processes", "2"])):
-        out = io.StringIO()
-        start = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            cli_main(["classify", os.path.join(data_dir, "fast5s"), "-s",
-                      START_MODEL, "-e", END_MODEL, "--batch_size", "16",
-                      *extra])
-        rates[name] = len(truth) / (time.perf_counter() - start)
-        tables[name] = out.getvalue()
+                        ("pool", [])):
+        tables[name], err, seconds[name] = _run_cli([
+            "classify", pod5_dir, "-s", START_MODEL, "-e", END_MODEL,
+            "--batch_size", str(BATCH), *extra])
+        rates[name] = _cli_throughput(err)
     if tables["pool"] != tables["threads"]:
-        raise AssertionError("cli: --reader_processes 2 gives other rows")
-    rows = [line.split("\t") for line in tables["pool"].splitlines()[1:]
-            if line]
-    if sorted(r[0] for r in rows) != sorted(truth):
-        raise AssertionError("cli: rows do not match the simulated reads")
-    calls = {r[0]: r[1] for r in rows}
-    exact = sum(1 for rid, t in truth.items()
-                if calls[rid] == ("none" if t == 0 else f"barcode{t:02d}"))
-    emit("cli", ran=True, reads=len(truth), rows=len(rows), exact=exact,
-         reads_per_s_threads=rates["threads"], reads_per_s_pool=rates["pool"])
-    shutil.rmtree(data_dir, ignore_errors=True)
+        raise AssertionError("cli: the worker pool's table differs from the "
+                             "reader threads'")
+    tsv = os.path.join(root, "calls.tsv")
+    with open(tsv, "w") as handle:
+        handle.write(tables["pool"])
+    calls = table.parse_classification_file(tsv)
+    rows = len(tables["pool"].splitlines()) - 1
+    if rows != len(truth) or sorted(calls) != sorted(truth):
+        raise AssertionError(f"cli: {rows} rows for {len(truth)} reads")
+    exact = sum(1 for read_id, call in truth.items() if calls[read_id] == call)
+    if exact < 0.9 * len(truth):
+        raise AssertionError(f"cli: only {exact}/{len(truth)} exact")
+
+    bins = []
+    for run in range(2):
+        out_dir = os.path.join(root, f"bins{run}")
+        _run_cli(["bin", "--classes", tsv, "--reads",
+                  os.path.join(root, "reads.fastq"), "--out_dir", out_dir])
+        bins.append({name: open(os.path.join(out_dir, name), "rb").read()
+                     for name in sorted(os.listdir(out_dir))})
+    if bins[0] != bins[1]:
+        raise AssertionError("cli: two bin runs wrote different bytes")
+    binned = collections.Counter()
+    for name in bins[0]:
+        call = name.split(".")[0]
+        for record in seqio.iterate_fastq(os.path.join(root, "bins0", name)):
+            if calls[record[0]] != call:
+                raise AssertionError(f"cli: {record[0]} is in {name}, its "
+                                     f"row says {calls[record[0]]}")
+            binned[call] += 1
+    if binned != collections.Counter(calls.values()):
+        raise AssertionError(f"cli: bin counts {dict(binned)} differ from the "
+                             f"table's")
+    emit("cli", ran=True, container="pod5", containers=len(containers),
+         reads=len(truth), rows=rows, exact=exact, simulate_s=simulate_s,
+         reads_per_s_threads=rates["threads"], reads_per_s_pool=rates["pool"],
+         seconds_threads=seconds["threads"], seconds_pool=seconds["pool"],
+         cpus=os.cpu_count(), tables_identical=True,
+         bin_files=len(bins[0]), bin_counts=dict(sorted(binned.items())),
+         bin_identical=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_realtime(probe: dict) -> None:
+    """`realtime` on 256 single-read pod5 files that arrive in drops."""
+    import collections
+    import shutil
+    import statistics
+
+    from deepbinner_tpu_torch.cli import realtime as realtime_module
+    from deepbinner_tpu_torch.cli.main import get_arguments
+    from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
+    from deepbinner_tpu_torch.utils.pod5 import read_pod5
+
+    _check_pod5_readers(probe, "realtime")
+    root = os.path.join(WORK_DIR, "realtime")
+    shutil.rmtree(root, ignore_errors=True)
+    _run_cli(["simulate", os.path.join(root, "staging"), "--container", "pod5",
+              "--reads_per_container", "1", "--reads_per_barcode", "21",
+              "--none_reads", "4", "--genome_length", "1200", "--seed", "6"])
+    staging = os.path.join(root, "staging", "fast5s")
+    names = sorted(os.listdir(staging))
+    tsv, _err, _s = _run_cli(["classify", staging, "-s", START_MODEL])
+    expected = {read_id: call for read_id, call in (
+        line.split("\t")[:2] for line in tsv.splitlines()[1:] if line)}
+    want = {name: expected[read_pod5(os.path.join(staging, name))[0][0]]
+            for name in names}
+    if len(names) != 256:
+        raise AssertionError(f"realtime: {len(names)} files staged")
+
+    in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
+    stop = os.path.join(root, "stop")
+    os.makedirs(in_dir)
+    arrived, moved, errors = {}, {}, []
+
+    def producer() -> None:
+        for k in range(0, len(names), 64):
+            for name in names[k:k + 64]:
+                os.replace(os.path.join(staging, name),
+                           os.path.join(in_dir, name))
+                arrived[name] = time.monotonic()
+            time.sleep(0.5)
+
+    def monitor() -> None:
+        deadline = time.monotonic() + 300
+        while len(moved) < len(names):
+            if time.monotonic() > deadline:
+                errors.append(f"realtime: {len(moved)} of {len(names)} files "
+                              f"sorted after 300 s")
+                break
+            for _dir, _sub, files in os.walk(out_dir):
+                for name in files:
+                    moved.setdefault(name, time.monotonic())
+            time.sleep(0.02)
+        with open(stop, "w"):
+            pass
+
+    pools = []
+    make_pool = realtime_module._make_reader_pool
+
+    def recording_pool(program, args):
+        pool = make_pool(program, args)
+        pools.append(0 if pool is None else pool.num_workers)
+        return pool
+
+    args = get_arguments(["realtime", "--in_dir", in_dir, "--out_dir", out_dir,
+                          "-s", START_MODEL, "--poll_interval", "0.2",
+                          "--stop_file", stop])
+    threads = [threading.Thread(target=producer, daemon=True),
+               threading.Thread(target=monitor, daemon=True)]
+    realtime_module._make_reader_pool = recording_pool
+    conv_kernel.LAUNCHES = 0
+    trunk_kernel.LAUNCHES = 0
+    try:
+        for thread in threads:
+            thread.start()
+        stats = realtime_module.realtime(args)
+    finally:
+        realtime_module._make_reader_pool = make_pool
+        for thread in threads:
+            thread.join(timeout=330)
+    launches = {"conv1d_bn_relu": conv_kernel.LAUNCHES,
+                "trunk_megakernel": trunk_kernel.LAUNCHES}
+    if errors:
+        raise AssertionError(errors[0])
+    if os.listdir(in_dir):
+        raise AssertionError(f"realtime: {len(os.listdir(in_dir))} files "
+                             f"left in the watched directory")
+    misplaced = [name for name in names if not os.path.exists(
+        os.path.join(out_dir, want[name], name))]
+    if misplaced:
+        raise AssertionError(f"realtime: {len(misplaced)} files not in the bin "
+                             f"classify gave them (e.g. {misplaced[:3]})")
+    if pools != [2]:
+        raise AssertionError(f"realtime: reader pools made {pools}; expected "
+                             f"one of 2 workers")
+    # One warm-up batch at startup, then the watch's own batches.
+    _check_launches(launches, stats.batches + 1,
+                    {"conv1d_bn_relu": 15, "trunk_megakernel": 0}, "realtime")
+    latency = [moved[name] - arrived[name] for name in names]
+    emit("realtime", files=len(names), reads=stats.reads,
+         batches=stats.batches, warm_up_batches=1, launches=launches,
+         launches_per_batch={k: v / (stats.batches + 1)
+                             for k, v in launches.items()},
+         workers=pools[0], poll_s=0.2, drop_files=64, drop_every_s=0.5,
+         arrival_to_move_s={"median": statistics.median(latency),
+                            "max": max(latency)},
+         bins=dict(sorted(collections.Counter(want.values()).items())))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _child_pids() -> list:
+    """This process's live child processes, read from /proc."""
+    me, pids = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as handle:
+                stat = handle.read()
+        except OSError:
+            continue
+        # Fields after the command name: state, ppid, ...
+        if int(stat[stat.rfind(")") + 2:].split()[1]) == me:
+            pids.append(int(entry))
+    return pids
+
+
+def stop_child_processes() -> dict:
+    """Stop every process this run started that still runs.
+
+    Reader workers that outlived their pool are terminated.  Then
+    multiprocessing's resource tracker, which the first spawned worker or
+    shared-memory slot starts, is stopped: it ignores SIGTERM and exits
+    only once the pipe it reads is closed, which otherwise happens after
+    this process has exited.  Any other child left is killed.  Returns what
+    was found, by kind.
+    """
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+
+    workers = multiprocessing.active_children()
+    for child in workers:
+        child.terminate()
+    for child in workers:
+        child.join(timeout=5)
+        if child.is_alive():
+            child.kill()
+            child.join()
+    tracker = resource_tracker._resource_tracker  # noqa: SLF001 — no public stop
+    had_tracker = tracker._pid is not None  # noqa: SLF001
+    tracker._stop()  # noqa: SLF001 — closes its pipe and waits for it
+    others = _child_pids()
+    for pid in others:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    return {"workers": [child.name for child in workers],
+            "resource_tracker": had_tracker, "others": others}
 
 
 def main() -> int:
@@ -881,8 +1138,26 @@ def main() -> int:
     # yardstick and the plain versions called here directly need it too.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = torch.device("cuda")
     smi = nvidia_smi_line()
+    try:
+        summary = run_phases(torch.device("cuda"), smi)
+    finally:
+        stopped = stop_child_processes()
+    emit("processes", **stopped)
+    if stopped["workers"] or stopped["others"]:
+        raise AssertionError(f"processes left running after the phases: "
+                             f"{stopped}")
+    print(smi)
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(device, smi: str) -> dict:
+    """Every phase in turn; returns the kernel summary."""
+    import torch
 
     probe = probe_readers()
     build_s = build_kernels()
@@ -912,6 +1187,7 @@ def main() -> int:
     phase_pool_ring(reads, unit)
     phase_native(probe)
     phase_cli(probe)
+    phase_realtime(probe)
 
     # K2's numbers are those of the "all" segment, the one launch per batch
     # that classify --pallas makes; every segment's are on its own line.
@@ -942,12 +1218,7 @@ def main() -> int:
         "bound_by": whole["bound_by"],
         "library_ms": whole["library_ms"],
     }]}
-    print(smi)
-    print(json.dumps(summary))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return summary
 
 
 if __name__ == "__main__":

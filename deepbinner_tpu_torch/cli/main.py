@@ -1,4 +1,4 @@
-"""CLI dispatch for the port: the JAX package's argparse, with `classify` routed.
+"""CLI dispatch for the port: the JAX package's argparse, routed to the port.
 
 Counterpart of ``deepbinner_tpu/cli/main.py``.  ``get_arguments`` is a copy
 of the JAX CLI's, so the same command lines parse the same way, with these
@@ -14,8 +14,11 @@ differences in `classify` and `realtime`:
   megakernel; without it every unit is one launch of the unit kernel;
 - ``--device_count`` above 1 is an error (one device per process for now).
 
-Only `classify` runs; every other subcommand exits non-zero with
-"not ported yet".
+`classify`, `bin`, `realtime` and `simulate` run.  `simulate --container
+fast5` and `multifast5` write through h5py and fail with its import error
+where it is missing; `pod5` needs only pyarrow and the system zstd
+library.  `prep`, `balance` and `train` exit non-zero with "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -253,14 +256,38 @@ def _add_simulate_args(parser: argparse.ArgumentParser) -> None:
 def main(argv: Optional[List[str]] = None) -> None:
     args = get_arguments(argv)
     name = args.subparser_name
-    if name != "classify":
+    # Lazy imports: each workload pulls in only what it needs.
+    if name == "classify":
+        from deepbinner_tpu_torch.cli.classify import classify_fast5_files
+
+        classify_fast5_files(args)
+    elif name == "bin":
+        from deepbinner_tpu_torch.cli.bin_reads import bin_reads
+
+        bin_reads(args)
+    elif name == "realtime":
+        from deepbinner_tpu_torch.cli.realtime import realtime
+
+        realtime(args)
+    elif name == "simulate":
+        from deepbinner_tpu_torch.utils.log import log
+        from deepbinner_tpu_torch.utils.simulate import make_dataset
+
+        truth = make_dataset(
+            args.out_dir, kit=args.kit,
+            reads_per_barcode=args.reads_per_barcode,
+            none_reads=args.none_reads,
+            genome_length=args.genome_length, seed=args.seed,
+            synthetic=args.synthetic_barcodes,
+            container=args.container,
+            reads_per_container=args.reads_per_container,
+        )
+        log(f"wrote {len(truth)} simulated reads to {args.out_dir}")
+    else:
         from deepbinner_tpu_torch.utils.log import quit_with_error
 
         quit_with_error(f"`{name}` is not ported yet; run it with the JAX "
                         f"package's deepbinner-tpu")
-    from deepbinner_tpu_torch.cli.classify import classify_fast5_files
-
-    classify_fast5_files(args)
 
 
 if __name__ == "__main__":

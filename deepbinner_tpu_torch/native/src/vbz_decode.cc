@@ -2,12 +2,12 @@
 //
 // The pod5 signal codec (utils/pod5.py) is zstd over svb16-packed
 // zigzag-encoded int16 deltas.  zstd decompression is already C (the
-// python-zstandard module), but the numpy unpack path costs ~8 separate
-// passes over the samples (unpackbits, cumsum for offsets, two fancy
-// gathers, zigzag arithmetic, int64 cumsum, int16 cast); the JAX
-// package measured it at 4x the C++ fast5 reader's whole per-read cost on
-// its host (BENCH_POD5_r05.jsonl).  This single fused pass does the same
-// work in one scalar loop.
+// system libzstd, called through native/zstd.py), but the numpy unpack
+// path costs ~8 separate passes over the samples (unpackbits, cumsum for
+// offsets, two fancy gathers, zigzag arithmetic, int64 cumsum, int16
+// cast); the JAX package measured it at 4x the C++ fast5 reader's whole
+// per-read cost on its host (BENCH_POD5_r05.jsonl).  This single fused
+// pass does the same work in one scalar loop.
 //
 // Reference parity: the vbz v1 codec semantics mirrored from
 // utils/pod5.py::vbz_decompress (itself written to the public pod5

@@ -6,7 +6,9 @@ pod5, so the rebuild ingests it behind the same ReadFn contract the fast5
 readers use (north star: "ingests raw fast5/pod5 current traces").
 
 No pod5 library exists in this image, so this module implements the
-container format directly (pyarrow + flatbuffers + zstandard are available):
+container format directly.  It needs pyarrow (the embedded tables) and the
+system zstd library through ctypes (:mod:`..native.zstd`); the FlatBuffers
+footer is encoded and decoded here with ``struct``:
 
 - **Container** (per nanoporetech/pod5-file-format docs): an 8-byte
   signature, a 16-byte section marker, then embedded Apache-Arrow
@@ -37,7 +39,6 @@ from __future__ import annotations
 
 import os
 import struct
-import threading
 import uuid
 from typing import List, Optional, Tuple
 
@@ -101,38 +102,27 @@ def svb16_decode(payload: bytes, count: int) -> np.ndarray:
 
 def vbz_compress(signal: np.ndarray) -> bytes:
     """int16 signal → delta → zig-zag → svb16 → zstd (vbz v1 semantics)."""
-    import zstandard
+    from deepbinner_tpu_torch.native import zstd
 
     v = np.ascontiguousarray(signal, dtype=np.int16)
     delta = np.empty_like(v)
     delta[:1] = v[:1]
     # wrapping int16 difference, exactly invertible by the wrapping cumsum
     delta[1:] = (v[1:].astype(np.int32) - v[:-1].astype(np.int32)).astype(np.int16)
-    return zstandard.ZstdCompressor(level=1).compress(
-        svb16_encode(_zigzag_encode(delta))
-    )
-
-
-# One decompressor context per thread: ZstdDecompressor is not safe for
-# concurrent decompress calls, and the in-process reader threads
-# (runner.executor.iter_signals) decode pod5 files side by side.  A context
-# per thread keeps the reuse (creating one per chunk showed up in the
-# per-read decode profile) without sharing it.
-_ZSTD = threading.local()
+    return zstd.compress(svb16_encode(_zigzag_encode(delta)))
 
 
 def vbz_decompress(payload: bytes, sample_count: int) -> np.ndarray:
-    import zstandard
-
-    ctx = getattr(_ZSTD, "ctx", None)
-    if ctx is None:
-        ctx = _ZSTD.ctx = zstandard.ZstdDecompressor()
-    max_size = (sample_count + 7) // 8 + 2 * sample_count
-    raw = ctx.decompress(payload, max_output_size=max(max_size, 1))
-    # One fused C pass where it can be built (native/vbz.py); the numpy
-    # chain below stays its oracle (tests/test_torch_native.py).
+    # native.zstd keeps one decompression context per thread: the
+    # in-process reader threads (runner.executor.iter_signals) decode pod5
+    # files side by side, and a shared context is not safe for that.
     from deepbinner_tpu_torch.native import vbz as native_vbz
+    from deepbinner_tpu_torch.native import zstd
 
+    raw = zstd.decompress(payload, (sample_count + 7) // 8 + 2 * sample_count)
+    # One fused C pass where it can be built (native/vbz.py); the numpy
+    # chain below stays its oracle (tests/test_torch_native.py).  Both
+    # raise ValueError when ``raw`` holds fewer bytes than its keys need.
     if native_vbz.available():
         return native_vbz.unpack(raw, sample_count)
     delta = _zigzag_decode(svb16_decode(raw, sample_count))
@@ -141,84 +131,114 @@ def vbz_decompress(payload: bytes, sample_count: int) -> np.ndarray:
 
 
 # ------------------------------------------------------------ footer codec
+#
+# The footer is a FlatBuffers buffer of two tables:
+#   Footer{file_identifier: string, software: string, pod5_version: string,
+#          contents: [EmbeddedFile]}                     (slots 0-3)
+#   EmbeddedFile{offset: int64, length: int64, format: int16,
+#                content_type: int16}                    (slots 0-3)
+# laid out by FlatBuffers' rules, so that any FlatBuffers reader reads it:
+# the root table's uoffset at byte 0; a table starts with an int32 soffset
+# back to its vtable (vtable = table - soffset); a vtable holds its own size,
+# the table's size and a uint16 offset per slot (0: the field is absent and
+# takes its default); strings and vectors start with a uint32 length and
+# strings end in NUL; a uoffset is relative to its own position and points
+# forward; each scalar is aligned to its size from byte 0.
 
 def _build_footer(file_identifier: str,
                   embedded: List[Tuple[int, int, int]]) -> bytes:
-    """FlatBuffers footer: Footer{file_identifier, software, pod5_version,
+    """Footer{file_identifier, software, pod5_version,
     contents:[EmbeddedFile{offset,length,format,content_type}]}."""
-    import flatbuffers
+    buf = bytearray(4)  # the root uoffset, linked at the end
 
-    builder = flatbuffers.Builder(256)
-    fid = builder.CreateString(file_identifier)
-    software = builder.CreateString("deepbinner_tpu")
-    version = builder.CreateString("0.3.10")
-    tables = []
-    for offset, length, content_type in embedded:
-        builder.StartObject(4)
-        builder.PrependInt64Slot(0, offset, 0)
-        builder.PrependInt64Slot(1, length, 0)
-        builder.PrependInt16Slot(2, FORMAT_FEATHER_V2, 0)
-        builder.PrependInt16Slot(3, content_type, 0)
-        tables.append(builder.EndObject())
-    builder.StartVector(4, len(tables), 4)
-    for table in reversed(tables):
-        builder.PrependUOffsetTRelative(table)
-    contents = builder.EndVector()
-    builder.StartObject(4)
-    builder.PrependUOffsetTRelativeSlot(0, fid, 0)
-    builder.PrependUOffsetTRelativeSlot(1, software, 0)
-    builder.PrependUOffsetTRelativeSlot(2, version, 0)
-    builder.PrependUOffsetTRelativeSlot(3, contents, 0)
-    builder.Finish(builder.EndObject())
-    return bytes(builder.Output())
+    def pad(alignment: int) -> None:
+        buf.extend(bytes(-len(buf) % alignment))
+
+    def link(at: int, target: int) -> None:
+        struct.pack_into("<I", buf, at, target - at)
+
+    def table(fields: List[Tuple[str, int]]) -> List[int]:
+        """Append a vtable and its table of (struct code, value) fields in
+        slot order; returns each field's position."""
+        offsets, size = [], 4
+        for code, _value in fields:
+            width = struct.calcsize(code)
+            size += -size % width
+            offsets.append(size)
+            size += width
+        pad(2)
+        vtable = len(buf)
+        buf.extend(struct.pack(f"<{2 + len(fields)}H", 4 + 2 * len(fields),
+                               size, *offsets))
+        pad(8)
+        start = len(buf)
+        buf.extend(bytes(size))
+        struct.pack_into("<i", buf, start, start - vtable)
+        for (code, value), offset in zip(fields, offsets):
+            struct.pack_into("<" + code, buf, start + offset, value)
+        return [start] + [start + offset for offset in offsets]
+
+    def string(text: str) -> int:
+        pad(4)
+        at = len(buf)
+        data = text.encode()
+        buf.extend(struct.pack("<I", len(data)) + data + b"\0")
+        return at
+
+    footer = table([("I", 0)] * 4)
+    targets = [string(file_identifier), string("deepbinner_tpu"),
+               string("0.3.10")]
+    pad(4)
+    vector = len(buf)
+    buf.extend(struct.pack(f"<{1 + len(embedded)}I", len(embedded),
+                           *([0] * len(embedded))))
+    targets.append(vector)
+    for i, (offset, length, content_type) in enumerate(embedded):
+        entry = table([("q", offset), ("q", length), ("h", FORMAT_FEATHER_V2),
+                       ("h", content_type)])
+        link(vector + 4 + 4 * i, entry[0])
+    for at, target in zip(footer[1:], targets):
+        link(at, target)
+    link(0, footer[0])
+    pad(8)
+    return bytes(buf)
 
 
-class _FbTable:
-    """Minimal generic FlatBuffers table accessor (slot = field index)."""
+def _field(buf: bytes, table: int, slot: int) -> Optional[int]:
+    """Position of a table's field, or None where the vtable omits it."""
+    (back,) = struct.unpack_from("<i", buf, table)
+    vtable = table - back
+    (vtable_size,) = struct.unpack_from("<H", buf, vtable)
+    entry = 4 + 2 * slot
+    if entry >= vtable_size:
+        return None
+    (offset,) = struct.unpack_from("<H", buf, vtable + entry)
+    return table + offset if offset else None
 
-    def __init__(self, buf: bytes, pos: int) -> None:
-        from flatbuffers import table as fb_table
 
-        self.t = fb_table.Table(buf, pos)
+def _follow(buf: bytes, at: int) -> int:
+    """The position a uoffset at ``at`` points to."""
+    return at + struct.unpack_from("<I", buf, at)[0]
 
-    def _offset(self, slot: int) -> int:
-        return self.t.Offset(4 + 2 * slot)
 
-    def int64(self, slot: int, default: int = 0) -> int:
-        from flatbuffers import number_types as nt
-
-        o = self._offset(slot)
-        return self.t.Get(nt.Int64Flags, o + self.t.Pos) if o else default
-
-    def int16(self, slot: int, default: int = 0) -> int:
-        from flatbuffers import number_types as nt
-
-        o = self._offset(slot)
-        return self.t.Get(nt.Int16Flags, o + self.t.Pos) if o else default
-
-    def string(self, slot: int) -> Optional[str]:
-        o = self._offset(slot)
-        return self.t.String(o + self.t.Pos).decode() if o else None
-
-    def vector_len(self, slot: int) -> int:
-        o = self._offset(slot)
-        return self.t.VectorLen(o) if o else 0
-
-    def table_in_vector(self, slot: int, index: int) -> "_FbTable":
-        o = self._offset(slot)
-        vec = self.t.Vector(o) + index * 4
-        return _FbTable(self.t.Bytes, self.t.Indirect(vec))
+def _scalar(buf: bytes, table: int, slot: int, code: str) -> int:
+    at = _field(buf, table, slot)
+    return struct.unpack_from("<" + code, buf, at)[0] if at is not None else 0
 
 
 def _parse_footer(buf: bytes) -> List[Tuple[int, int, int, int]]:
     """→ [(offset, length, format, content_type)] from footer flatbuffer."""
-    (root,) = struct.unpack_from("<I", buf, 0)
-    footer = _FbTable(buf, root)
+    footer = _follow(buf, 0)
+    at = _field(buf, footer, 3)
+    if at is None:
+        return []
+    vector = _follow(buf, at)
+    (count,) = struct.unpack_from("<I", buf, vector)
     out = []
-    for i in range(footer.vector_len(3)):
-        entry = footer.table_in_vector(3, i)
-        out.append((entry.int64(0), entry.int64(1),
-                    entry.int16(2), entry.int16(3)))
+    for i in range(count):
+        entry = _follow(buf, vector + 4 + 4 * i)
+        out.append((_scalar(buf, entry, 0, "q"), _scalar(buf, entry, 1, "q"),
+                    _scalar(buf, entry, 2, "h"), _scalar(buf, entry, 3, "h")))
     return out
 
 

@@ -223,8 +223,9 @@ def test_all_unreadable_fails_loud(models, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["bin", "--classes", "x", "--reads", "y", "--out_dir", "z"],
-    ["simulate", "out"],
+    ["prep", "fast5s", "--kit", "EXP-NBD103", "--reads", "r.fastq",
+     "--out", "train.tsv"],
+    ["balance", "train.tsv", "--out", "balanced.tsv"],
     ["train", "data.tsv", "--out", "m.dbt"],
 ])
 def test_unported_subcommands_exit_nonzero(argv, capsys):

@@ -397,3 +397,28 @@ def test_released_slots_overwritten_at_once_give_the_same_calls(cuda_device):
         assert (g.call, g.start_call, g.end_call) == (w.call, w.start_call,
                                                       w.end_call)
         np.testing.assert_array_equal(g.start_probs, w.start_probs)
+
+
+def test_realtime_poll_on_the_card_matches_classify(cuda_device, tmp_path,
+                                                    capsys):
+    """One `realtime --max_batches 1` poll on a pod5 file with the flagship
+    start model: the file goes to the bin of the call `classify` gives its
+    read, after 15 K1 launches for the warm-up batch and 15 for the poll's."""
+    from deepbinner_tpu_torch.cli.main import main
+    from deepbinner_tpu_torch.utils.pod5 import write_pod5
+
+    read = simulate.simulate_read("EXP-NBD103", 7, np.random.default_rng(13),
+                                  genome_length=1200)
+    in_dir = tmp_path / "incoming"
+    in_dir.mkdir()
+    write_pod5(in_dir / "one.pod5", [(read.read_id, read.signal)])
+    main(["classify", str(in_dir), "-s", START_MODEL])
+    rows = [line.split("\t") for line in capsys.readouterr().out.splitlines()]
+    assert rows[1][0] == read.read_id
+    before = conv_kernel.LAUNCHES
+    main(["realtime", "--in_dir", str(in_dir), "--out_dir",
+          str(tmp_path / "sorted"), "-s", START_MODEL, "--poll_interval", "0.1",
+          "--max_batches", "1"])
+    assert conv_kernel.LAUNCHES - before == 30
+    assert (tmp_path / "sorted" / rows[1][1] / "one.pod5").exists()
+    assert not (in_dir / "one.pod5").exists()

@@ -37,6 +37,8 @@ print(json.dumps({
     "cuda": torch.cuda.is_available(),
     "resolve_raised": raised,
     "native_loaded": build.loaded(),
+    "pod5_libraries": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("zstandard", "flatbuffers")),
 }))
 """
 
@@ -58,6 +60,9 @@ def test_port_imports_without_jax():
     assert result["foreign"] == []
     assert "deepbinner_tpu_torch.runner.mp_reader" in expected
     assert "deepbinner_tpu_torch.native.build" in expected
+    for name in ("cli.bin_reads", "cli.realtime", "utils.seqio", "native.zstd"):
+        assert f"deepbinner_tpu_torch.{name}" in expected
+    assert result["pod5_libraries"] == []  # neither zstandard nor flatbuffers
     assert result["native_loaded"] == []  # importing builds nothing
     # The card is the default: without one, resolving the default raises.
     assert result["resolve_raised"] == (not result["cuda"])
