@@ -73,7 +73,31 @@ one JSON line per phase:
     ``classify`` gave its read, with 15 K1 launches per classified batch
     (and per warm-up batch), and the seconds from each file's arrival to
     its move are reported.
-13. ``processes``: once the phases end, passed or failed, every process
+13. ``train``: the training path on the card.  Training rows are built
+    here with the recipe of ``scripts/train_models.py`` (the port's
+    ``simulate_read``, EXP-NBD103 read starts, genome 2000, as many none
+    reads as reads per barcode, ``extract_training_samples`` at signal size
+    1536 and margin 128), written with ``write_samples``, then ``balance``
+    and ``train`` run through the port's CLI at the flagship width (input
+    1024, batch 256, lr 1e-3, a checkpoint directory).  Reported: samples,
+    epochs, wall time, the median ms per train step from CUDA events after
+    epoch 1, samples/s, each epoch's train loss and validation accuracy.
+    Then: a run stopped after epoch 2 and resumed for epoch 3 restores the
+    step, weights and Adam's moments bit for bit and repeats the
+    uninterrupted run's epoch-3 loss bit for bit (the steps are
+    deterministic); one flagship-width step at batch 32 (offsets injected,
+    noise and dropout at 0) on the card against the CPU: in float64 on the
+    same crops, loss 1e-5 relative, each gradient within 1e-4 of its
+    largest |g|, running statistics 1e-5; the trainer's f32 step, loss and
+    statistics at those bounds (its gradients reported), and with TF32
+    asked for the card's own "highest" step at every bound; and
+    the trained `.dbt`, loaded by ``load_model`` and run through
+    ``build_program`` on the unit path (15 K1 launches per batch), meets the
+    accuracy floor.  ``step_variants``: the trainer's step against the same
+    step on cuDNN's default algorithms (time, and whether two runs repeat
+    bit for bit), and the pinned step's top kernels by device time
+    (``torch.profiler``).
+14. ``processes``: once the phases end, passed or failed, every process
     the run started that still runs is stopped: reader workers and any
     other child are killed, and multiprocessing's resource tracker is
     stopped and waited for.  A reader worker or other child still alive
@@ -440,11 +464,11 @@ def _simulated_reads(count: int, seed: int, end: str = "start"):
     return reads, truth
 
 
-def _build_program(end_model=None, extra=()):
+def _build_program(end_model=None, extra=(), start_model=START_MODEL):
     from deepbinner_tpu_torch.cli.classify import build_program
     from deepbinner_tpu_torch.cli.main import get_arguments
 
-    argv = ["classify", ROOT, "-s", START_MODEL, *extra]
+    argv = ["classify", ROOT, "-s", start_model, *extra]
     if end_model:
         argv += ["-e", end_model]
     program, _net_cfg = build_program(get_arguments(argv))
@@ -492,9 +516,9 @@ def _score(calls, truth):
     return exact, wrong
 
 
-def _accuracy_floor(program):
-    """The stock-model accuracy floor of tests/test_stock_models.py: 3 reads
-    per barcode + 4 none from seed 977, >= 38/40 exact, no wrong barcode."""
+def _floor_reads():
+    """The reads of the stock-model accuracy floor of
+    tests/test_stock_models.py: 3 per barcode + 4 none from seed 977."""
     import numpy as np
 
     from deepbinner_tpu_torch.utils import simulate
@@ -506,6 +530,12 @@ def _accuracy_floor(program):
                                       genome_length=1200)
         floor_reads.append((read.read_id, read.signal))
         floor_truth[read.read_id] = barcode
+    return floor_reads, floor_truth
+
+
+def _accuracy_floor(program):
+    """The stock-model accuracy floor: >= 38/40 exact, no wrong barcode."""
+    floor_reads, floor_truth = _floor_reads()
     floor_calls, _s, _t, _l = _run_stream(program, floor_reads)
     floor_exact, floor_wrong = _score(floor_calls, floor_truth)
     if floor_wrong or floor_exact < 38:
@@ -1068,6 +1098,448 @@ def phase_realtime(probe: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+TRAIN_READS_PER_BARCODE = 150
+TRAIN_EPOCHS = 30
+TRAIN_BATCH = 256
+TRAIN_SIGNAL_SIZE = 1536   # 1.5 × the flagship input, as scripts/train_models.py
+TRAIN_MARGIN = 128         # input // 8, as scripts/train_models.py
+TRAIN_NONE_FRACTION = 0.2  # keeps the recipe's none rows (3 per none read)
+STEP_BATCH = 32            # the card-vs-CPU step
+
+
+def _training_rows(reads_per_barcode: int, seed: int) -> list:
+    """Training rows by the recipe of scripts/train_models.py: simulated
+    EXP-NBD103 reads (genome 2000; as many none reads as reads per barcode,
+    each giving three none cuts), each keeping the rows of its own class."""
+    import numpy as np
+
+    from deepbinner_tpu_torch.train.prep import extract_training_samples
+    from deepbinner_tpu_torch.utils import simulate
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for barcode in [0] * reads_per_barcode + [
+            b for b in range(1, 13) for _ in range(reads_per_barcode)]:
+        read = simulate.simulate_read("EXP-NBD103", barcode, rng,
+                                      genome_length=2000)
+        samples = extract_training_samples(
+            read.signal, read.sequence, (read.signal_start_of_bases, read.dwells),
+            "EXP-NBD103", "start", signal_size=TRAIN_SIGNAL_SIZE,
+            margin=TRAIN_MARGIN, none_rows=3 if barcode == 0 else 1)
+        rows += [(label, signal) for label, signal in samples
+                 if (label == 0) == (barcode == 0)]
+    return rows
+
+
+def _trainer_state(trainer) -> dict:
+    """Copies of a trainer's step, weights and Adam state."""
+    params = list(trainer.model.parameters())
+    return {"step": trainer.step,
+            "params": [p.detach().clone() for p in params],
+            "moments": [{key: value.clone() for key, value in
+                         trainer.optimizer.state[p].items()} for p in params]}
+
+
+def _same_state(got: dict, want: dict) -> bool:
+    import torch
+
+    return (got["step"] == want["step"]
+            and all(torch.equal(a, b) for a, b in zip(got["params"],
+                                                      want["params"]))
+            and all(a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                                 for k in a)
+                    for a, b in zip(got["moments"], want["moments"])))
+
+
+@contextlib.contextmanager
+def _watch_trainer():
+    """Record what the port's Trainer does inside a CLI call: each train
+    step between two CUDA events with its loss, each evaluation, the last
+    trainer, and its state right after a restore."""
+    import torch
+
+    from deepbinner_tpu_torch.train.trainer import Trainer
+
+    record = {"steps": [], "evals": []}
+    run_step, run_eval, restore = (Trainer.run_train_step, Trainer.run_eval,
+                                   Trainer.restore_checkpoint)
+
+    def watched_step(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = run_step(self, *args, **kwargs)
+        end.record()
+        record["steps"].append((start, end, metrics["loss"]))
+        record["trainer"] = self
+        return metrics
+
+    def watched_eval(self, *args, **kwargs):
+        result = run_eval(self, *args, **kwargs)
+        record["evals"].append(result)
+        return result
+
+    def watched_restore(self, directory):
+        epoch = restore(self, directory)
+        record["restored"] = _trainer_state(self)
+        return epoch
+
+    Trainer.run_train_step = watched_step
+    Trainer.run_eval = watched_eval
+    Trainer.restore_checkpoint = watched_restore
+    try:
+        yield record
+    finally:
+        Trainer.run_train_step = run_step
+        Trainer.run_eval = run_eval
+        Trainer.restore_checkpoint = restore
+
+
+def _epochs(record: dict) -> list:
+    """Each epoch's train loss (the mean of its steps' losses, as the loop
+    logs it) and validation accuracy, from a watched run."""
+    import statistics
+
+    per_epoch = len(record["steps"]) // len(record["evals"])
+    losses = [float(loss) for _s, _e, loss in record["steps"]]
+    return [{"train_loss": statistics.fmean(losses[k * per_epoch:
+                                                    (k + 1) * per_epoch]),
+             "val_accuracy": val["accuracy"], "val_loss": val["loss"]}
+            for k, val in enumerate(record["evals"])]
+
+
+def _train_argv(data: str, out: str, epochs: int, *extra) -> list:
+    return ["train", data, "--out", out, "--size", "full", "--epochs",
+            str(epochs), "--batch_size", str(TRAIN_BATCH), "--learning_rate",
+            "1e-3", *extra]
+
+
+def _flagship_quiet():
+    from deepbinner_tpu_torch.models.network import NetworkConfig
+
+    return NetworkConfig(noise_stddev=0.0, dropout_rate=0.0)
+
+
+def _step_on(device, state: dict, rows, offsets) -> tuple:
+    """One flagship-width Trainer step (f32) from ``state``: (loss, clipped
+    gradients, new running statistics), on the CPU."""
+    from deepbinner_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(network=_flagship_quiet(),
+                                  batch_size=STEP_BATCH), device)
+    trainer.model.load_state_dict(state)
+    loss = float(trainer.run_train_step(*rows, offsets=offsets)["loss"])
+    return (loss, {n: p.grad.cpu() for n, p in trainer.model.named_parameters()},
+            {n: b.cpu() for n, b in trainer.model.named_buffers()})
+
+
+def _forward_backward_on(device, state: dict, crops, labels, weights,
+                         dtype=None) -> tuple:
+    """The step's forward, backward and clip on given crops (no optimiser):
+    (loss, gradients, new running statistics), on the CPU."""
+    import torch
+
+    from deepbinner_tpu_torch.models.network import DemuxNet
+    from deepbinner_tpu_torch.train.trainer import (
+        clip_by_global_norm_,
+        forward_backward,
+    )
+
+    dtype = dtype or torch.float32
+    model = DemuxNet(_flagship_quiet())
+    model.load_state_dict(state)
+    model = model.to(device, dtype)
+    loss, _accuracy = forward_backward(
+        model, crops.to(device, dtype), labels.to(device),
+        weights.to(device, dtype))
+    clip_by_global_norm_([p.grad for p in model.parameters()])
+    return (float(loss),
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers()})
+
+
+def _step_error(got: tuple, want: tuple) -> dict:
+    """How far one step is from another: the loss's relative error, each
+    gradient's max error over its largest |g| (the worst tensor, and how
+    many tensors exceed 1e-4), and the running statistics' max error."""
+    loss, grads, stats = got
+    by_tensor = {n: float((grads[n].double() - g.double()).abs().max()
+                          / g.double().abs().max()) for n, g in want[1].items()}
+    worst = max(by_tensor, key=by_tensor.get)
+    return {"loss_rel": abs(loss - want[0]) / abs(want[0]),
+            "grad_rel": by_tensor[worst], "grad_worst": worst,
+            "grads_over_1e-4": sum(v > 1e-4 for v in by_tensor.values()),
+            "stats_abs": max(float((stats[n].double() - b.double()).abs().max())
+                             for n, b in want[2].items())}
+
+
+def _within(error: dict, grads: bool = True) -> bool:
+    """The bounds: loss 1e-5 relative, statistics 1e-5, and (where asked)
+    every gradient within 1e-4 of its tensor's largest |g|."""
+    return (error["loss_rel"] <= 1e-5 and error["stats_abs"] <= 1e-5
+            and (not grads or error["grad_rel"] <= 1e-4))
+
+
+def _card_vs_cpu_step(device) -> dict:
+    """One flagship-width step at batch 32 on the card against the CPU.
+
+    - ``float64``: the step's forward, backward and clip in float64 on the
+      same crops on both: every bound, gradients included.  This is the
+      check that the card computes the CPU's function.
+    - ``float32`` (the trainer's own step, offsets injected, at "highest"
+      and with TF32 asked for: "high", cuDNN TF32 on): the loss and the
+      statistics within their bounds.  Its gradients are reported, not
+      bounded: at batch 32 the f32 gradients of both devices are already
+      farther than 1e-4 of their largest |g| from the float64 ones
+      (``f32_vs_f64``), because a ReLU or max-pool decision that sits
+      within rounding of a tie goes another way and BatchNorm's backward
+      sums cancel.
+    - ``pin``: the card's f32 step with TF32 asked for against the one at
+      "highest": every bound, gradients included; ``unpinned`` is the same
+      step outside the trainer's pin, reported only.
+    """
+    import numpy as np
+    import torch
+
+    from deepbinner_tpu_torch.models.network import DemuxNet, init_weights
+    from deepbinner_tpu_torch.runner.pipeline import full_f32
+    from deepbinner_tpu_torch.train.trainer import augment_crop
+
+    model = init_weights(DemuxNet(_flagship_quiet()),
+                         torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    rng = np.random.default_rng(3)
+    weights = np.ones(STEP_BATCH, np.float32)
+    weights[STEP_BATCH - STEP_BATCH // 8:] = 0.0  # padding rows: in BN only
+    rows = (np.round(rng.normal(450, 60, (STEP_BATCH, TRAIN_SIGNAL_SIZE))
+                     ).astype(np.float32),
+            rng.integers(0, 13, STEP_BATCH).astype(np.int32), weights)
+    offsets = rng.integers(0, TRAIN_SIGNAL_SIZE - 1024 + 1, STEP_BATCH)
+    cpu = torch.device("cpu")
+    crops = augment_crop(torch.from_numpy(rows[0]), 1024, offsets=offsets)
+    same = (crops, torch.from_numpy(rows[1]).long(), torch.from_numpy(weights))
+    exact = {name: _forward_backward_on(dev, state, *same, dtype=torch.float64)
+             for name, dev in (("cpu", cpu), ("card", device))}
+    f32 = {"cpu": _step_on(cpu, state, rows, offsets)}
+    try:
+        for precision, cudnn_tf32 in (("highest", False), ("high", True)):
+            torch.set_float32_matmul_precision(precision)
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            f32[precision] = _step_on(device, state, rows, offsets)
+        # The same step outside the trainer's pin, TF32 still asked for.
+        loose = _forward_backward_on(device, state, *same)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
+    with full_f32():
+        tight = _forward_backward_on(device, state, *same)
+    result = {
+        "batch": STEP_BATCH,
+        "float64": _step_error(exact["card"], exact["cpu"]),
+        "float32": {p: _step_error(f32[p], f32["cpu"])
+                    for p in ("highest", "high")},
+        "f32_vs_f64": {"cpu": _step_error(f32["cpu"], exact["cpu"]),
+                       "card": _step_error(f32["highest"], exact["cpu"])},
+        "pin": _step_error(f32["high"], f32["highest"]),
+        "unpinned": _step_error(loose, tight),
+    }
+    if not (_within(result["float64"]) and _within(result["pin"])
+            and all(_within(e, grads=False) for e in result["float32"].values())):
+        raise AssertionError(f"train: the step on the card is off the "
+                             f"CPU's: {result}")
+    return result
+
+
+def _timed_steps(device, batches, pinned: bool) -> tuple:
+    """24 flagship steps from seed 0 on ``batches`` (4 of 256 rows), as the
+    trainer runs them (``pinned``: TF32 off, cuDNN deterministic) or with
+    cuDNN's default algorithms (TF32 off only): (median ms from CUDA events
+    after 4 warm-up steps, the losses, the final weights)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from deepbinner_tpu_torch.models.network import NetworkConfig
+    from deepbinner_tpu_torch.runner.pipeline import full_f32
+    from deepbinner_tpu_torch.train.trainer import (
+        TrainConfig,
+        Trainer,
+        step_generator,
+        train_step,
+    )
+
+    trainer = Trainer(TrainConfig(network=NetworkConfig()), device)
+    ones = torch.ones(TRAIN_BATCH, device=device)
+    events, losses = [], []
+    for k in range(24):
+        signals, labels = batches[k % len(batches)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if pinned:
+            metrics = trainer.run_train_step(signals, labels)
+        else:
+            with full_f32():
+                metrics = train_step(
+                    trainer.model, trainer.optimizer, 1024,
+                    torch.from_numpy(signals).to(device),
+                    torch.from_numpy(labels).to(device).long(), ones,
+                    step_generator(1, k, device))
+        end.record()
+        events.append((start, end))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    return (statistics.median(s.elapsed_time(e) for s, e in events[4:]),
+            np.asarray([float(x) for x in losses]),
+            [p.detach().clone() for p in trainer.model.parameters()])
+
+
+def _step_variants(device, rows) -> dict:
+    """The trainer's step against the same step on cuDNN's default
+    algorithms, in turns (pinned, default, default, pinned): time and
+    whether two runs repeat bit for bit; then where the pinned step's
+    device time goes (``torch.profiler``, 4 steps)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepbinner_tpu_torch.models.network import NetworkConfig
+    from deepbinner_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batches = [(np.stack([r[1] for r in rows[k:k + TRAIN_BATCH]]).astype(np.float32),
+                np.asarray([r[0] for r in rows[k:k + TRAIN_BATCH]], np.int32))
+               for k in range(0, 4 * TRAIN_BATCH, TRAIN_BATCH)]
+    runs = {True: [], False: []}
+    for pinned in (True, False, False, True):
+        runs[pinned].append(_timed_steps(device, batches, pinned))
+
+    def repeats(pair) -> bool:
+        (_ms0, loss0, params0), (_ms1, loss1, params1) = pair
+        return bool(np.array_equal(loss0, loss1)) and all(
+            torch.equal(a, b) for a, b in zip(params0, params1))
+
+    if not repeats(runs[True]):
+        raise AssertionError("train: two runs of the trainer's steps differ")
+    trainer = Trainer(TrainConfig(network=NetworkConfig()), device)
+    for k in range(2):
+        trainer.run_train_step(*batches[k])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(4):
+            trainer.run_train_step(*batches[k])
+        torch.cuda.synchronize()
+    # Kernels only: an op's self device time counts its kernels again.
+    kernels = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(t for t, _k in kernels)
+    if total <= 0:
+        raise AssertionError("train: torch.profiler saw no device time")
+    top = sorted(kernels, reverse=True)[:4]
+    return {"pinned_step_ms": [r[0] for r in runs[True]],
+            "pinned_repeats": True,
+            "default_cudnn_step_ms": [r[0] for r in runs[False]],
+            "default_cudnn_repeats": repeats(runs[False]),
+            "profile_kernel_ms_per_step": total / 4e3,
+            "profile_top": [{"kernel": k[:80], "share": t / total}
+                            for t, k in top]}
+
+
+def phase_train(device) -> dict:
+    """prep rows → balance → train through the port's CLI at the flagship
+    width, resume, card against CPU, and the trained model on K1."""
+    import shutil
+    import statistics
+
+    from deepbinner_tpu_torch.models.checkpoint import load_model
+    from deepbinner_tpu_torch.train.data import write_samples
+
+    root = os.path.join(WORK_DIR, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    start = time.perf_counter()
+    rows = _training_rows(TRAIN_READS_PER_BARCODE, seed=11)
+    rows_s = time.perf_counter() - start
+    prepped, balanced = (os.path.join(root, "prep.tsv"),
+                         os.path.join(root, "balanced.tsv"))
+    write_samples(prepped, rows)
+    _run_cli(["balance", prepped, "--out", balanced, "--none_fraction",
+              str(TRAIN_NONE_FRACTION), "--seed", "0"])
+    with open(balanced) as handle:
+        samples = sum(1 for _line in handle)
+
+    model_path = os.path.join(root, "trained.dbt")
+    with _watch_trainer() as record:
+        _o, _e, train_s = _run_cli(_train_argv(
+            balanced, model_path, TRAIN_EPOCHS, "--checkpoint_dir",
+            os.path.join(root, "ckpt")))
+    epochs = _epochs(record)
+    per_epoch = len(record["steps"]) // len(epochs)
+    step_ms = [s.elapsed_time(e) for s, e, _l in record["steps"][per_epoch:]]
+    # Rows trained on (padding rows not counted): the loop's split and
+    # augmentation factor (2, the CLI default).
+    trained = (samples - max(1, int(samples * 0.1))) * 2 * len(epochs)
+
+    # Resume: stopped after epoch 2, resumed for epoch 3.
+    resume_dir = os.path.join(root, "resume")
+    with _watch_trainer() as stopped:
+        _run_cli(_train_argv(balanced, os.path.join(root, "two.dbt"), 2,
+                             "--checkpoint_dir", resume_dir))
+    with _watch_trainer() as resumed:
+        _run_cli(_train_argv(balanced, os.path.join(root, "three.dbt"), 3,
+                             "--resume", resume_dir))
+    if not _same_state(resumed["restored"], _trainer_state(stopped["trainer"])):
+        raise AssertionError("train: resume did not restore the step, weights "
+                             "and Adam moments bit for bit")
+    # The trainer's steps are deterministic (train/trainer.pinned), so the
+    # resumed epoch must repeat the uninterrupted run's bit for bit.
+    resumed_loss = _epochs(resumed)[0]["train_loss"]
+    resume_rel = abs(resumed_loss - epochs[2]["train_loss"]) / epochs[2]["train_loss"]
+    if len(resumed["evals"]) != 1 or resumed_loss != epochs[2]["train_loss"]:
+        raise AssertionError(f"train: resumed epoch 3 loss {resumed_loss}, "
+                             f"uninterrupted {epochs[2]['train_loss']}")
+
+    step_errors = _card_vs_cpu_step(device)
+    variants = _step_variants(device, rows)
+
+    # The trained model on K1, through the classify program's unit path.
+    _model, config, meta = load_model(model_path)
+    program = _build_program(start_model=model_path)
+    program.warm_up(BATCH)
+    floor_reads, floor_truth = _floor_reads()
+    calls, stats, _seconds, launches = _run_stream(program, floor_reads)
+    _check_launches(launches, stats.batches,
+                    {"conv1d_bn_relu": 15, "trunk_megakernel": 0}, "train")
+    exact, wrong = _score(calls, floor_truth)
+    if wrong or exact < 38:
+        raise AssertionError(f"train: the trained model's accuracy floor: "
+                             f"{exact}/40 exact, {wrong} wrong barcodes")
+    line = dict(
+        phase_s=time.perf_counter() - start, rows=len(rows), rows_s=rows_s,
+        samples=samples,
+        reads_per_barcode=TRAIN_READS_PER_BARCODE, epochs=len(epochs),
+        steps=len(record["steps"]), steps_per_epoch=per_epoch,
+        batch=TRAIN_BATCH, train_s=train_s,
+        step_ms_median=statistics.median(step_ms),
+        samples_per_s=trained / train_s,
+        step_samples_per_s=TRAIN_BATCH / statistics.median(step_ms) * 1e3,
+        epoch_train_loss=[e["train_loss"] for e in epochs],
+        epoch_val_accuracy=[e["val_accuracy"] for e in epochs],
+        best_val=meta["best_val"], input_length=config.input_length,
+        resume={"state_bit_identical": True, "loss_bit_identical": True,
+                "epoch3_loss": resumed_loss,
+                "uninterrupted_epoch3_loss": epochs[2]["train_loss"],
+                "rel": resume_rel},
+        card_vs_cpu=step_errors, step_variants=variants,
+        floor_exact=exact, floor_wrong=wrong,
+        floor_launches=launches, floor_batches=stats.batches)
+    emit("train", **line)
+    shutil.rmtree(root, ignore_errors=True)
+    return line
+
+
 def _child_pids() -> list:
     """This process's live child processes, read from /proc."""
     me, pids = os.getpid(), []
@@ -1188,6 +1660,7 @@ def run_phases(device, smi: str) -> dict:
     phase_native(probe)
     phase_cli(probe)
     phase_realtime(probe)
+    phase_train(device)
 
     # K2's numbers are those of the "all" segment, the one launch per batch
     # that classify --pallas makes; every segment's are on its own line.

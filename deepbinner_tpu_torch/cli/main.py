@@ -14,11 +14,14 @@ differences in `classify` and `realtime`:
   megakernel; without it every unit is one launch of the unit kernel;
 - ``--device_count`` above 1 is an error (one device per process for now).
 
-`classify`, `bin`, `realtime` and `simulate` run.  `simulate --container
-fast5` and `multifast5` write through h5py and fail with its import error
-where it is missing; `pod5` needs only pyarrow and the system zstd
-library.  `prep`, `balance` and `train` exit non-zero with "not ported
-yet".
+In `train`, ``--device {cuda,cpu}`` (default ``cuda``) picks the device as
+in `classify`, and ``--dp`` above 1 is an error (data-parallel training
+comes with the multi-GPU slice).
+
+Every subcommand runs.  `simulate --container fast5` and `multifast5`
+write through h5py and fail with its import error where it is missing;
+`pod5` needs only pyarrow and the system zstd library.  `prep` reads fast5
+only, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -230,7 +233,11 @@ def _add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--size", default="full", choices=["full", "tiny"],
                         help="Network size preset (tiny = fast CI training)")
     parser.add_argument("--dp", type=int, default=0,
-                        help="Data-parallel devices (0 = all local devices)")
+                        help="Data-parallel devices (0 or 1: one device; "
+                             "more is not ported yet)")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="Device to train on (default cuda; cpu must be "
+                             "asked for)")
 
 
 def _add_simulate_args(parser: argparse.ArgumentParser) -> None:
@@ -269,6 +276,18 @@ def main(argv: Optional[List[str]] = None) -> None:
         from deepbinner_tpu_torch.cli.realtime import realtime
 
         realtime(args)
+    elif name == "prep":
+        from deepbinner_tpu_torch.train.prep import prep
+
+        prep(args)
+    elif name == "balance":
+        from deepbinner_tpu_torch.train.balance import balance
+
+        balance(args)
+    elif name == "train":
+        from deepbinner_tpu_torch.train.trainer import train_from_args
+
+        train_from_args(args)
     elif name == "simulate":
         from deepbinner_tpu_torch.utils.log import log
         from deepbinner_tpu_torch.utils.simulate import make_dataset
@@ -283,11 +302,6 @@ def main(argv: Optional[List[str]] = None) -> None:
             reads_per_container=args.reads_per_container,
         )
         log(f"wrote {len(truth)} simulated reads to {args.out_dir}")
-    else:
-        from deepbinner_tpu_torch.utils.log import quit_with_error
-
-        quit_with_error(f"`{name}` is not ported yet; run it with the JAX "
-                        f"package's deepbinner-tpu")
 
 
 if __name__ == "__main__":

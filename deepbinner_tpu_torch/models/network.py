@@ -1,4 +1,4 @@
-"""DemuxNet, the barcode-classifier 1D CNN, as PyTorch modules (inference only).
+"""DemuxNet, the barcode-classifier 1D CNN, as PyTorch modules.
 
 Counterpart of ``deepbinner_tpu/models/network.py``.  The module tree and
 parameter names mirror the flax variables, with ``/`` written as ``.``:
@@ -11,14 +11,24 @@ flax's ``(K, C_in, C_out)`` layout and activations JAX's ``(N, L, C)``.
 ``model.apply``: every unit through the plain conv, pools after each
 stage.  The classify program runs the kernel composition of
 :mod:`deepbinner_tpu_torch.models.kernel_apply` instead.
+
+``forward(windows, train=True, generator=g)`` is flax's
+``apply(..., train=True)``: GaussianNoise at the input, each unit's
+BatchNorm on the batch statistics (which also updates the running ones),
+dropout before the dense layer.  The mode is an argument, never
+``nn.Module.training``, which starts as True and would put every classify
+path that calls ``model(...)`` on batch statistics.  The training forward
+runs in PyTorch's ``(N, C, L)`` layout on ``F.conv1d`` (the JAX trainer
+leaves this conv to XLA, outside any Pallas kernel).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from deepbinner_tpu_torch import NUM_CLASSES
@@ -26,6 +36,10 @@ from deepbinner_tpu_torch.ops.conv_kernel import (
     conv1d_bn_relu_reference,
     fold_batchnorm,
 )
+
+
+BN_EPSILON = 1e-3   # Keras BatchNormalization's default, as flax's units use
+BN_MOMENTUM = 0.9   # flax's convention: running = 0.9 * running + 0.1 * batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +77,28 @@ class ConvBNRelu(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv1d_bn_relu_reference(x, *self.folded(), dilation=self.dilation)
 
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The training unit on ``(N, C_in, L)``: conv, BatchNorm on the batch
+        statistics, ReLU; the running statistics take one momentum step.
+
+        The statistics are flax 0.12's: mean over (N, L), variance
+        E[x²] − E[x]² clipped at 0, over every row of the batch (padding rows
+        of weight 0 included).  The running variance takes the biased batch
+        variance, as flax's does (``torch.nn.BatchNorm1d`` takes the unbiased
+        one, with its momentum the other way round).
+        """
+        taps = self.kernel.shape[0]
+        y = F.conv1d(x, self.kernel.permute(2, 1, 0),
+                     padding=(taps - 1) // 2 * self.dilation,
+                     dilation=self.dilation)
+        mean = y.mean(dim=(0, 2))
+        var = torch.clamp((y * y).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
+        return torch.relu((y - mean[:, None]) * mul[:, None] + self.bias[:, None])
+
 
 def _pool2(x: torch.Tensor) -> torch.Tensor:
     """Window-2 stride-2 VALID max pool over L of ``(N, L, C)``."""
@@ -96,13 +132,22 @@ class InceptionModule(nn.Module):
                           self.branch_dilated(x),
                           self.branch_pool(pool3_same(x))], dim=-1)
 
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """Training forward on ``(N, C, L)`` (max pool padding is -inf)."""
+        pooled = F.max_pool1d(x, 3, stride=1, padding=1)
+        return torch.cat([self.branch1x1.forward_train(x),
+                          self.branch3.forward_train(x),
+                          self.branch_dilated.forward_train(x),
+                          self.branch_pool.forward_train(pooled)], dim=1)
+
 
 class DemuxNet(nn.Module):
     """Input ``(B, input_length)`` or ``(B, input_length, 1)`` → ``(B, C)`` logits.
 
     Parameters start as zeros; real weights come from
-    :func:`deepbinner_tpu_torch.models.checkpoint.load_model` or
-    :func:`~deepbinner_tpu_torch.models.checkpoint.from_flax_variables`.
+    :func:`deepbinner_tpu_torch.models.checkpoint.load_model`,
+    :func:`~deepbinner_tpu_torch.models.checkpoint.from_flax_variables` or,
+    to train, :func:`init_weights`.
     """
 
     def __init__(self, config: NetworkConfig = NetworkConfig()) -> None:
@@ -125,7 +170,11 @@ class DemuxNet(nn.Module):
         nn.init.zeros_(self.classifier.weight)
         nn.init.zeros_(self.classifier.bias)
 
-    def forward(self, windows: torch.Tensor) -> torch.Tensor:
+    def forward(self, windows: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits; ``train=True`` draws noise and dropout from ``generator``."""
+        if train:
+            return self._forward_train(windows, generator)
         x = windows.float()
         if x.dim() == 2:
             x = x[:, :, None]
@@ -137,6 +186,68 @@ class DemuxNet(nn.Module):
             x = _pool2(getattr(self, f"inception{i}")(x))
         x = self.head_conv(x).mean(dim=1)  # global average pool over L
         return self.classifier(x)
+
+    def _forward_train(self, windows: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        cfg = self.config
+        x = windows.to(self.classifier.weight.dtype)  # f32 unless made f64
+        if x.dim() == 3:
+            x = x[:, :, 0]
+        if generator is None and (cfg.noise_stddev > 0 or cfg.dropout_rate > 0):
+            raise ValueError("a training forward with noise or dropout needs "
+                             "a torch.Generator")
+        if cfg.noise_stddev > 0:  # GaussianNoise
+            x = x + cfg.noise_stddev * torch.randn(
+                x.shape, generator=generator, device=x.device)
+        x = x[:, None, :]  # (N, 1, L)
+        x = F.max_pool1d(self.stem2.forward_train(self.stem1.forward_train(x)), 2)
+        for i in range(len(cfg.block_features)):
+            x = getattr(self, f"block{i}_conv1").forward_train(x)
+            x = F.max_pool1d(getattr(self, f"block{i}_conv2").forward_train(x), 2)
+        for i in range(len(cfg.inception_features)):
+            x = F.max_pool1d(getattr(self, f"inception{i}").forward_train(x), 2)
+        x = self.head_conv.forward_train(x).mean(dim=2)
+        if cfg.dropout_rate > 0:  # flax Dropout: keep with 1 - rate, scale up
+            keep = 1.0 - cfg.dropout_rate
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros_like(x))
+        return self.classifier(x)
+
+
+def _lecun_normal_(tensor: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated at ±2σ, variance 1/fan_in."""
+    # 0.8796... is the std of a unit normal truncated at ±2, as in JAX's
+    # variance_scaling, so that the truncated draw has variance 1/fan_in.
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(tensor, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+def init_weights(model: DemuxNet, generator: torch.Generator) -> DemuxNet:
+    """Initialise ``model`` as flax's ``init`` does, from ``generator``.
+
+    Conv kernels ``(K, C_in, C_out)`` and the dense kernel take
+    ``lecun_normal`` (fan_in K·C_in and C_in), biases are 0, BatchNorm
+    scales 1, running means 0 and variances 1.  The distributions are
+    flax's; the values cannot equal JAX's for the same seed (another
+    generator).  Draws run on the CPU in execution order, so a seed gives
+    the same weights whatever device the model goes to afterwards.
+    """
+    with torch.no_grad():
+        for scope in unit_scopes(model.config):
+            unit = model.get_submodule(scope.replace("/", "."))
+            taps, c_in, _c_out = unit.kernel.shape
+            _lecun_normal_(unit.kernel, taps * c_in, generator)
+            unit.scale.fill_(1.0)
+            unit.bias.zero_()
+            unit.mean.zero_()
+            unit.var.fill_(1.0)
+        _lecun_normal_(model.classifier.weight, model.classifier.in_features,
+                       generator)
+        model.classifier.bias.zero_()
+    return model
 
 
 def unit_scopes(config: NetworkConfig) -> Iterator[str]:

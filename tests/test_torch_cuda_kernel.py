@@ -2,7 +2,8 @@
 on the card against the same program on the CPU.
 
 Every test here needs a CUDA card and nvcc: they are marked ``cuda`` and
-skip without one.  The file imports no JAX, so it also runs on a machine
+skip without one, but for the check that `train` exits non-zero without a
+card, which runs anywhere.  The file imports no JAX, so it also runs on a machine
 that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda_kernel.py --noconftest -q
@@ -18,6 +19,7 @@ import torch
 
 from deepbinner_tpu_torch.models.checkpoint import load_model
 from deepbinner_tpu_torch.models.kernel_apply import fold_network
+from deepbinner_tpu_torch.models.network import NetworkConfig
 from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
 from deepbinner_tpu_torch.ops.calling import CallingConfig
 from deepbinner_tpu_torch.ops.conv_kernel import (
@@ -53,6 +55,7 @@ MODELS = os.path.join(os.path.dirname(__file__), "..", "deepbinner_tpu",
 TINY_MODEL = os.path.join(MODELS, "TINY_dryrun.dbt")
 START_MODEL = os.path.join(MODELS, "EXP-NBD103_read_starts.dbt")
 TOL = dict(atol=1e-4, rtol=1e-4)
+FLAGSHIP_QUIET = NetworkConfig(noise_stddev=0.0, dropout_rate=0.0)
 
 
 @pytest.fixture
@@ -422,3 +425,104 @@ def test_realtime_poll_on_the_card_matches_classify(cuda_device, tmp_path,
     assert conv_kernel.LAUNCHES - before == 30
     assert (tmp_path / "sorted" / rows[1][1] / "one.pod5").exists()
     assert not (in_dir / "one.pod5").exists()
+
+
+def _train_step_results(state, rows, offsets, device):
+    """One Trainer step from ``state`` on ``device``: (loss, clipped
+    gradients, new running statistics), on the CPU."""
+    from deepbinner_tpu_torch.train import trainer as port_trainer
+
+    cfg = port_trainer.TrainConfig(network=FLAGSHIP_QUIET, batch_size=len(rows[1]))
+    trainer = port_trainer.Trainer(cfg, device)
+    trainer.model.load_state_dict(state)
+    metrics = trainer.run_train_step(*rows, offsets=offsets)
+    grads = {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}
+    stats = {n: b.cpu() for n, b in trainer.model.named_buffers()}
+    return float(metrics["loss"]), grads, stats
+
+
+def _float64_step(state, crops, labels, weights, device):
+    """The step's forward, backward and clip in float64 on given crops."""
+    from deepbinner_tpu_torch.models.network import DemuxNet
+    from deepbinner_tpu_torch.train import trainer as port_trainer
+
+    model = DemuxNet(FLAGSHIP_QUIET)
+    model.load_state_dict(state)
+    model = model.to(device, torch.float64)
+    loss, _acc = port_trainer.forward_backward(
+        model, crops.to(device, torch.float64), labels.to(device),
+        weights.to(device, torch.float64))
+    port_trainer.clip_by_global_norm_([p.grad for p in model.parameters()])
+    return (float(loss), {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers()})
+
+
+def _assert_step_close(got, want, grads=True):
+    """Loss within 1e-5 relative, statistics within 1e-5 and (where asked)
+    each gradient within 1e-4 of its tensor's largest |g|."""
+    assert got[0] == pytest.approx(want[0], rel=1e-5)
+    for name, ref in want[2].items():
+        assert float((got[2][name] - ref).abs().max()) <= 1e-5, name
+    if grads:
+        for name, ref in want[1].items():
+            bound = 1e-4 * float(ref.abs().max())
+            assert float((got[1][name] - ref).abs().max()) <= bound, name
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One flagship-width step (batch 8, offsets injected, noise and dropout
+    at 0) from the same weights: in float64 on the same crops, the card
+    computes the CPU's loss, gradients and statistics; the trainer's f32
+    step on the card gives the CPU's loss and statistics, and with TF32
+    asked for (matmul precision "high", cuDNN TF32 on) the card's own
+    "highest" step, gradients included (the trainer pins TF32 off).  The
+    f32 gradients are not held card against CPU: a ReLU or max-pool
+    decision within rounding of a tie goes another way on each."""
+    from deepbinner_tpu_torch.models.network import DemuxNet, init_weights
+    from deepbinner_tpu_torch.train.trainer import augment_crop
+
+    model = init_weights(DemuxNet(FLAGSHIP_QUIET), torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    rng = np.random.default_rng(3)
+    rows = (np.round(rng.normal(450, 60, (8, 1536))).astype(np.float32),
+            rng.integers(0, 13, 8).astype(np.int32),
+            np.array([1, 1, 1, 1, 1, 1, 0, 0], np.float32))
+    offsets = rng.integers(0, 1536 - 1024 + 1, 8)
+    same = (augment_crop(torch.from_numpy(rows[0]), 1024, offsets=offsets),
+            torch.from_numpy(rows[1]).long(), torch.from_numpy(rows[2]))
+    _assert_step_close(_float64_step(state, *same, cuda_device),
+                       _float64_step(state, *same, "cpu"))
+    want = _train_step_results(state, rows, offsets, "cpu")
+    card = {}
+    try:
+        for precision, cudnn_tf32 in (("highest", False), ("high", True)):
+            torch.set_float32_matmul_precision(precision)
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            card[precision] = _train_step_results(state, rows, offsets,
+                                                  cuda_device)
+            _assert_step_close(card[precision], want, grads=False)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
+    _assert_step_close(card["high"], card["highest"])
+
+
+def test_train_without_a_card_exits_nonzero(tmp_path):
+    """`train` defaults to the card: with none visible it exits non-zero and
+    says how to ask for the CPU.  (Runs with or without a card.)"""
+    import subprocess
+    import sys
+
+    from deepbinner_tpu_torch.train import data as data_io
+
+    data = tmp_path / "rows.tsv"
+    data_io.write_samples(data, [(1, np.arange(300, dtype=np.int16))] * 4)
+    root = os.path.join(os.path.dirname(__file__), "..")
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepbinner_tpu_torch.cli.main", "train",
+         str(data), "--out", str(tmp_path / "m.dbt"), "--size", "tiny"],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+    assert not (tmp_path / "m.dbt").exists()
