@@ -35,7 +35,10 @@ one JSON line per phase:
 4. ``classify``: the flagship start model through ``build_program`` (the
    CLI defaults: host trim, int8 wire, batch 256) and ``classify_stream`` on
    2048 simulated reads, the stock-model accuracy floor on 40 fresh-seed
-   reads, and each kernel's launch count over the run.
+   reads, and each kernel's launch count over the run; ``batch_profile``:
+   one batch's host enqueue time, and under ``torch.profiler`` the card's
+   kernel time, span and idle share and the host ops with the most self
+   CPU time.
 5. ``dual``: the same with ``EXP-NBD103_read_ends.dbt`` as the end model.
 6. ``classify_fused``: ``classify --pallas`` (stem1 on K1, the rest of the
    trunk in one K2 launch) on the same 2048 reads: calls equal to the
@@ -97,11 +100,39 @@ one JSON line per phase:
     step on cuDNN's default algorithms (time, and whether two runs repeat
     bit for bit), and the pinned step's top kernels by device time
     (``torch.profiler``).
-14. ``processes``: once the phases end, passed or failed, every process
+14. ``dp_classify`` (after ``pool_ring``): ``ClassifyProgram(devices=
+    [cuda:0, cuda:0])``, each batch's rows split in two and both halves
+    run on the one card, on the ``classify`` phase's 2048 reads: calls equal
+    to that phase's, 15 K1 launches per half batch (30 per batch); the
+    same over ``kernel_path="fused"`` on the first 512 (1 K1 + 1 K2 per
+    half); K1 held against its plain version at the half batch's 1408
+    windows (``kernel_unit_shard`` lines); ``dp_pool_ring``: the
+    ``pool_ring`` check on this program, a slot released only once the
+    uploads of both halves are done.  With more than one card, also the
+    CLI's ``--device_count 2``.
+15. ``dist_classify`` (after ``cli``): two ranks of the port's `classify`
+    (``RANK``/``WORLD_SIZE`` as ``torchrun`` sets them; both on the one
+    card, so the process group is gloo) over the ``cli`` phase's 8 pod5
+    files, each with the default reader pool: rank 0's table must equal the
+    single process's byte for byte, rank 1 prints none, each rank makes 15
+    K1 launches per model per batch; then once more with ``--shard_dir``
+    (manifests ``h0000`` and ``h0001``).
+16. ``dp_train`` (after ``train``): two ranks of `train` on the one card
+    (gloo on CUDA tensors) and one process, on the ``train`` phase's rows
+    at the flagship width: the first 5 Trainer steps in float64, whose
+    losses must agree within 1e-4 relative (the ranks' with each other bit
+    for bit); then 6 epochs in f32 through the CLI: the ranks' weights,
+    statistics and Adam state bit-identical after every epoch, the first 5
+    f32 losses against one process's reported, rank 0's ``.dbt`` at the
+    accuracy floor through K1; the median ms per step of each layout (the
+    ranks' is gloo through one card, not NCCL's time).
+17. ``processes``: once the phases end, passed or failed, every process
     the run started that still runs is stopped: reader workers and any
     other child are killed, and multiprocessing's resource tracker is
     stopped and waited for.  A reader worker or other child still alive
-    at that point fails the run (a pool was left open).
+    at that point fails the run (a pool was left open).  The ranks of
+    phases 15 and 16 run in sessions of their own, killed whole if one
+    fails.
 
 Any failure raises, so the script exits non-zero and prints no success
 line.  It needs a CUDA card and the repository's sources: without either it
@@ -215,8 +246,9 @@ def unit_geometries(config):
     return units
 
 
-def phase_kernels(device) -> dict:
-    """Kernel vs plain version at the 15 flagship unit geometries."""
+def phase_kernels(device, n: int = WINDOWS, line: str = "kernel_unit") -> dict:
+    """Kernel vs plain version at the 15 flagship unit geometries, on ``n``
+    windows (one line each, named ``line``)."""
     import torch
     import torch.nn.functional as F
 
@@ -242,7 +274,7 @@ def phase_kernels(device) -> dict:
         if c_out % plan.co_tile:
             raise AssertionError(f"{scope}: tile {plan.co_tile} wastes "
                                  f"columns of C_out {c_out}")
-        x = torch.randn((WINDOWS, length, c_in), generator=gen, device=device)
+        x = torch.randn((n, length, c_in), generator=gen, device=device)
         got = fused_conv1d_bn_relu(x, kernel, scale, bias, dilation=dilation,
                                    pool=pool)
         again = fused_conv1d_bn_relu(x, kernel, scale, bias,
@@ -286,13 +318,13 @@ def phase_kernels(device) -> dict:
             x, kernel, scale, bias, dilation=dilation, pool=pool), 5)
         library_ms = time_ms(library, 20)
         out_len = length // 2 if pool else length
-        flops = 2 * WINDOWS * length * taps * c_in * c_out
-        nbytes = 4 * (WINDOWS * length * c_in + WINDOWS * out_len * c_out
+        flops = 2 * n * length * taps * c_in * c_out
+        nbytes = 4 * (n * length * c_in + n * out_len * c_out
                       + taps * c_in * c_out + 2 * c_out)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / FP32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        emit("kernel_unit", unit=scope, n=WINDOWS, length=length, c_in=c_in,
+        emit(line, unit=scope, n=n, length=length, c_in=c_in,
              c_out=c_out, taps=taps, dilation=dilation, pool=pool,
              co_tile=plan.co_tile, row_tile=plan.row_tile, path=plan.path,
              threads=plan.threads, smem_bytes=plan.smem_bytes,
@@ -465,10 +497,12 @@ def _simulated_reads(count: int, seed: int, end: str = "start"):
 
 
 def _build_program(end_model=None, extra=(), start_model=START_MODEL):
+    """The CLI's classify program on one card (``extra`` may ask for more
+    with its own ``--device_count``)."""
     from deepbinner_tpu_torch.cli.classify import build_program
     from deepbinner_tpu_torch.cli.main import get_arguments
 
-    argv = ["classify", ROOT, "-s", start_model, *extra]
+    argv = ["classify", ROOT, "-s", start_model, "--device_count", "1", *extra]
     if end_model:
         argv += ["-e", end_model]
     program, _net_cfg = build_program(get_arguments(argv))
@@ -544,6 +578,62 @@ def _accuracy_floor(program):
     return floor_exact, floor_wrong
 
 
+# CUDA runtime calls that block the host until the card catches up.
+_HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize", "cudaMemcpy")
+
+
+def _batch_profile(program, sig, lens) -> dict:
+    """One batch of ``program`` (already warm): the host ms until
+    ``call_packed`` returns (nothing synchronised) and until the card is
+    done; under ``torch.profiler``, each call in the step that waits for
+    the card (with the ops and the port's frames around it), the card's
+    kernel ms, the span from its first kernel's start to its last one's
+    end, the idle share of that span, and the host ops with the most self
+    CPU time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    program.call_packed(sig, lens)
+    enqueue_ms = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        program.call_packed(sig, lens)
+    torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e.time_range for e in events
+               if e.device_type == DeviceType.CUDA]
+    # Each call inside the step that waits for the card: the aten ops
+    # around it, outermost first, and the port's frames that called them.
+    waits = []
+    for wait in (e for e in events if e.name in _HOST_WAITS):
+        around = sorted((e for e in events
+                         if e.time_range.start <= wait.time_range.start
+                         and e.time_range.end >= wait.time_range.end),
+                        key=lambda e: e.time_range.start)
+        waits.append({"call": wait.name, "ms": wait.cpu_time_total / 1e3,
+                      "ops": [e.name for e in around
+                              if e.name.startswith("aten::")],
+                      "frames": [e.name for e in around
+                                 if "deepbinner_tpu_torch" in e.name][-4:]})
+    busy_us = sum(r.end - r.start for r in kernels)
+    span_us = max(r.end for r in kernels) - min(r.start for r in kernels)
+    top = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
+                 reverse=True)[:6]
+    return {"enqueue_ms": enqueue_ms, "total_ms": total_ms,
+            "host_waits": waits,
+            "kernels": len(kernels), "kernel_ms": busy_us / 1e3,
+            "span_ms": span_us / 1e3, "idle_share": 1 - busy_us / span_us,
+            "top_host_ops": [{"op": a.key[:60], "calls": a.count,
+                              "self_cpu_ms": a.self_cpu_time_total / 1e3}
+                             for a in top]}
+
+
 def _classify_phase(phase: str, program, reads, truth, per_batch: dict,
                     cnn) -> dict:
     """Stream ``reads``, check the launches and the accuracy floor, and time
@@ -565,6 +655,7 @@ def _classify_phase(phase: str, program, reads, truth, per_batch: dict,
     sig_dev = torch.from_numpy(sig).to(program.device)
     len_dev = torch.from_numpy(lens).to(program.device)
     batch_ms = time_ms(lambda: program.call_packed(sig_dev, len_dev), 5)
+    batch_profile = _batch_profile(program, sig_dev, len_dev)
     windows = torch.randn((WINDOWS, 1024), device=program.device)
     with torch.inference_mode():
         cnn_ms = time_ms(lambda: cnn(program.start_net, windows), 5)
@@ -575,6 +666,7 @@ def _classify_phase(phase: str, program, reads, truth, per_batch: dict,
          exact=exact, wrong=wrong, floor_exact=floor_exact,
          floor_wrong=floor_wrong, device_batch_ms=batch_ms,
          cnn_batch_ms=cnn_ms, host_batch_ms=host_batch_ms,
+         batch_profile=batch_profile,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return {"calls": calls, "launches": launches,
             "reads_per_s": len(reads) / seconds, "device_batch_ms": batch_ms}
@@ -732,8 +824,11 @@ def phase_tf32(reads) -> None:
          unpinned_max_abs_diff=(loose - tables["highest"]).abs().max().item())
 
 
-def phase_pool_ring(reads, unit: dict) -> None:
-    """The reader pool's pinned shared-memory ring under classify_batches."""
+def phase_pool_ring(reads, unit: dict, program=None,
+                    phase: str = "pool_ring") -> None:
+    """The reader pool's pinned shared-memory ring under classify_batches
+    (``program``: the CLI-default one-device program unless given; a slot
+    goes back only once the uploads to all its devices are done)."""
     import functools
     import multiprocessing as mp
 
@@ -753,7 +848,8 @@ def phase_pool_ring(reads, unit: dict) -> None:
     )
     from deepbinner_tpu_torch.runner.mp_reader import _ShmRing
 
-    program = _build_program()
+    if program is None:
+        program = _build_program()
     program.warm_up(BATCH)
     spec = batch_spec_for(program.cfg.preprocess, BATCH, False)
     ring = _ShmRing(mp.get_context("spawn"), spec, MIN_SHM_SLOTS, pin=True)
@@ -778,7 +874,7 @@ def phase_pool_ring(reads, unit: dict) -> None:
     try:
         probe = ring.views(ring.slots[0])[0]
         if not torch.from_numpy(probe).is_pinned():
-            raise AssertionError("pool_ring: a registered slot is not pinned")
+            raise AssertionError(f"{phase}: a registered slot is not pinned")
         del probe
         stats = ExecutorStats()
         conv_kernel.LAUNCHES = 0
@@ -791,15 +887,15 @@ def phase_pool_ring(reads, unit: dict) -> None:
         launches = {"conv1d_bn_relu": conv_kernel.LAUNCHES,
                     "trunk_megakernel": trunk_kernel.LAUNCHES}
         _check_launches(launches, stats.batches,
-                        {"conv1d_bn_relu": 15, "trunk_megakernel": 0},
-                        "pool_ring")
+                        {"conv1d_bn_relu": 15 * len(program.devices),
+                         "trunk_megakernel": 0}, phase)
         if len(releases) != stats.batches:
-            raise AssertionError(f"pool_ring: {len(releases)} releases for "
+            raise AssertionError(f"{phase}: {len(releases)} releases for "
                                  f"{stats.batches} batches")
         if len(calls) != len(reads):
-            raise AssertionError(f"pool_ring: {len(reads)} reads in, "
+            raise AssertionError(f"{phase}: {len(reads)} reads in, "
                                  f"{len(calls)} calls out")
-        _same_calls("pool_ring", calls, unit["calls"])
+        _same_calls(phase, calls, unit["calls"])
         # One batch classified straight from a registered slot: the upload
         # from pinned memory is inside the timing.
         slot = ring.free.get(timeout=60)
@@ -810,7 +906,8 @@ def phase_pool_ring(reads, unit: dict) -> None:
         ring.free.put(slot)
     finally:
         ring.close()
-    emit("pool_ring", reads=len(reads), batches=stats.batches,
+    emit(phase, devices=[str(d) for d in program.devices],
+         reads=len(reads), batches=stats.batches,
          slots=MIN_SHM_SLOTS, releases=len(releases), seconds=seconds,
          reads_per_s=len(reads) / seconds, launches=launches,
          launches_per_batch={k: v / stats.batches for k, v in launches.items()},
@@ -919,9 +1016,10 @@ def _check_pod5_readers(probe: dict, phase: str) -> None:
                            f"{probe['zstd_version']}")
 
 
-def phase_cli(probe: dict) -> None:
+def phase_cli(probe: dict) -> dict:
     """simulate → classify (threads, then the worker pool) → bin through
-    the port's CLI, on pod5 files written here."""
+    the port's CLI, on pod5 files written here (kept for
+    ``dist_classify``, which removes them)."""
     import collections
     import shutil
 
@@ -987,7 +1085,8 @@ def phase_cli(probe: dict) -> None:
          cpus=os.cpu_count(), tables_identical=True,
          bin_files=len(bins[0]), bin_counts=dict(sorted(binned.items())),
          bin_identical=True)
-    shutil.rmtree(root, ignore_errors=True)
+    return {"root": root, "pod5_dir": pod5_dir, "table": tables["pool"],
+            "seconds_pool": seconds["pool"], "reads_per_s_pool": rates["pool"]}
 
 
 def phase_realtime(probe: dict) -> None:
@@ -1054,7 +1153,7 @@ def phase_realtime(probe: dict) -> None:
 
     args = get_arguments(["realtime", "--in_dir", in_dir, "--out_dir", out_dir,
                           "-s", START_MODEL, "--poll_interval", "0.2",
-                          "--stop_file", stop])
+                          "--stop_file", stop, "--device_count", "1"])
     threads = [threading.Thread(target=producer, daemon=True),
                threading.Thread(target=monitor, daemon=True)]
     realtime_module._make_reader_pool = recording_pool
@@ -1140,6 +1239,22 @@ def _trainer_state(trainer) -> dict:
                          trainer.optimizer.state[p].items()} for p in params]}
 
 
+def _state_digest(trainer) -> str:
+    """SHA-256 of a trainer's weights, statistics and Adam state, bytes in
+    order: two trainers with the same digest hold the same bits."""
+    import hashlib
+
+    hasher = hashlib.sha256()
+    state = _trainer_state(trainer)
+    tensors = list(state["params"]) + [t for _n, t in
+                                       trainer.model.named_buffers()]
+    tensors += [v for moments in state["moments"]
+                for _k, v in sorted(moments.items())]
+    for tensor in tensors:
+        hasher.update(tensor.detach().cpu().contiguous().numpy().tobytes())
+    return hasher.hexdigest()
+
+
 def _same_state(got: dict, want: dict) -> bool:
     import torch
 
@@ -1160,7 +1275,7 @@ def _watch_trainer():
 
     from deepbinner_tpu_torch.train.trainer import Trainer
 
-    record = {"steps": [], "evals": []}
+    record = {"steps": [], "evals": [], "digests": []}
     run_step, run_eval, restore = (Trainer.run_train_step, Trainer.run_eval,
                                    Trainer.restore_checkpoint)
 
@@ -1177,6 +1292,7 @@ def _watch_trainer():
     def watched_eval(self, *args, **kwargs):
         result = run_eval(self, *args, **kwargs)
         record["evals"].append(result)
+        record["digests"].append(_state_digest(self))
         return result
 
     def watched_restore(self, directory):
@@ -1209,9 +1325,11 @@ def _epochs(record: dict) -> list:
 
 
 def _train_argv(data: str, out: str, epochs: int, *extra) -> list:
+    """`train` at the flagship width on one card (a rank of a process group
+    ignores ``--dp``)."""
     return ["train", data, "--out", out, "--size", "full", "--epochs",
             str(epochs), "--batch_size", str(TRAIN_BATCH), "--learning_rate",
-            "1e-3", *extra]
+            "1e-3", "--dp", "1", *extra]
 
 
 def _flagship_quiet():
@@ -1449,7 +1567,8 @@ def _step_variants(device, rows) -> dict:
 
 def phase_train(device) -> dict:
     """prep rows → balance → train through the port's CLI at the flagship
-    width, resume, card against CPU, and the trained model on K1."""
+    width, resume, card against CPU, and the trained model on K1 (the rows
+    are kept for ``dp_train``, which removes them)."""
     import shutil
     import statistics
 
@@ -1536,8 +1655,351 @@ def phase_train(device) -> dict:
         floor_exact=exact, floor_wrong=wrong,
         floor_launches=launches, floor_batches=stats.batches)
     emit("train", **line)
+    return {**line, "root": root, "balanced": balanced,
+            "step_ms": statistics.median(step_ms),
+            "epoch_losses": [e["train_loss"] for e in epochs]}
+
+
+DP_TRAIN_EPOCHS = 6     # 3 reach val acc 0.77-0.80 there, under the floor
+DP_F64_STEPS = 5
+RANK_TIMEOUT_S = 300
+
+
+def _f64_steps(rows: str, out: str) -> None:
+    """The first DP_F64_STEPS flagship Trainer steps (batch TRAIN_BATCH,
+    noise and dropout on) in float64, as one process or as this rank of
+    the process group; their losses, as JSON, to ``out``.  In float64 the
+    order of the ranks' sums moves a loss by about 1e-12, so this holds the
+    data-parallel algebra (global draws, SyncBN, global loss and
+    gradients) to one process's without the f32 rounding that Adam's first
+    steps amplify."""
+    import numpy as np
+    import torch
+
+    from deepbinner_tpu_torch.models.network import NetworkConfig
+    from deepbinner_tpu_torch.parallel import dist, mesh
+    from deepbinner_tpu_torch.train import trainer as trainer_module
+    from deepbinner_tpu_torch.train.data import load_training_set
+    from deepbinner_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    def normalise64(x):  # ops.preprocess.normalise without its cast to f32
+        x = x.double()
+        std = x.std(dim=-1, keepdim=True, correction=0)
+        return (x - x.mean(dim=-1, keepdim=True)) / (std + 1e-8)
+
+    dist.maybe_initialize("cuda")
+    normalise = trainer_module.normalise
+    ok = False
+    try:
+        rank, world = dist.group_rank_and_size()
+        device = torch.device("cuda", mesh.process_cards()[0])
+        trainer = Trainer(TrainConfig(network=NetworkConfig(),
+                                      batch_size=TRAIN_BATCH), device,
+                          rank=rank, world=world)
+        trainer.model.double()  # the optimiser keeps the same parameters
+        trainer._put = lambda array, dtype: torch.as_tensor(array).to(
+            device, torch.float64 if dtype == torch.float32 else dtype)
+        trainer_module.normalise = normalise64
+        signals, labels = load_training_set(rows)
+        order = np.random.default_rng(0).permutation(len(labels))
+        losses = []
+        for step in range(DP_F64_STEPS):
+            batch = order[step * TRAIN_BATCH:(step + 1) * TRAIN_BATCH]
+            metrics = trainer.run_train_step(signals[batch].astype(np.float64),
+                                             labels[batch])
+            losses.append(float(metrics["loss"]))
+        with open(out, "w") as handle:
+            json.dump({"losses": losses, "dtype": str(
+                next(trainer.model.parameters()).dtype)}, handle)
+        ok = True
+    finally:
+        trainer_module.normalise = normalise
+        dist.shutdown(ok)
+
+
+def rank_main() -> None:
+    """One rank of the ``dist_classify`` / ``dp_train`` phases, started by
+    :func:`_run_ranks` in a child process: the port's CLI on ``argv``, then
+    the rank's kernel launches and train steps, as JSON, to ``out`` (or,
+    for ``f64_steps ROWS``, :func:`_f64_steps`).
+
+        python -c "import chip_smoke; chip_smoke.rank_main()" OUT ARGV...
+    """
+    import torch
+
+    from deepbinner_tpu_torch.cli.main import main as cli_main
+    from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
+
+    out, *argv = sys.argv[1:]
+    if argv[0] == "f64_steps":
+        _f64_steps(argv[1], out)
+        return
+    conv_kernel.LAUNCHES = 0
+    trunk_kernel.LAUNCHES = 0
+    with _watch_trainer() as record:
+        cli_main(argv)
+    torch.cuda.synchronize()
+    with open(out, "w") as handle:
+        json.dump({"launches": {"conv1d_bn_relu": conv_kernel.LAUNCHES,
+                                "trunk_megakernel": trunk_kernel.LAUNCHES},
+                   "step_ms": [s.elapsed_time(e)
+                               for s, e, _l in record["steps"]],
+                   "losses": [float(l) for _s, _e, l in record["steps"]],
+                   "evals": record["evals"], "digests": record["digests"]},
+                  handle)
+
+
+def _run_ranks(name: str, argv: list, world: int = 2) -> list:
+    """``world`` ranks of the port's CLI on this host, as ``torchrun
+    --nproc_per_node world`` would start them, all on the one card (so the
+    process group is gloo).  Each rank runs in a session of its own, which
+    is killed whole (reader workers included) if the rank fails or
+    outlives ``RANK_TIMEOUT_S``.  Returns each rank's (stdout, stderr,
+    seconds, rank_main's JSON)."""
+    import signal
+
+    from deepbinner_tpu_torch.parallel import dist
+
+    port = dist.free_port()
+    procs, outs = [], []
+    start = time.perf_counter()
+    for rank in range(world):
+        out = os.path.join(WORK_DIR, f"{name}_rank{rank}.json")
+        env = dict(os.environ, PYTHONPATH=ROOT, **dist.rank_environ(rank, world,
+                                                                    port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.rank_main()",
+             out, *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True))
+        outs.append(out)
+    results, failure = [], None
+    try:
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=RANK_TIMEOUT_S)
+            results.append([stdout, stderr, time.perf_counter() - start])
+            if proc.returncode != 0 and failure is None:
+                failure = (f"{name}: rank {rank} exited {proc.returncode}:\n"
+                           f"{stderr[-4000:]}")
+    except subprocess.TimeoutExpired:
+        failure = f"{name}: a rank ran past {RANK_TIMEOUT_S} s"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    for stdout, stderr, _s in results:
+        sys.stderr.write(stderr)
+    if failure:
+        raise AssertionError(failure)
+    for result, out in zip(results, outs):
+        with open(out) as handle:
+            result.append(json.load(handle))
+        os.unlink(out)
+    return results
+
+
+def _logged_batches(stderr: str) -> int:
+    match = re.search(r"classified in (\d+) batch\(es\)", stderr)
+    if match is None:
+        raise AssertionError("classify logged no batch count")
+    return int(match.group(1))
+
+
+def phase_dist_classify(cli: dict) -> None:
+    """Two ranks of the port's `classify` (gloo, both on the one card,
+    the default reader pool each) over the ``cli`` phase's pod5 files:
+    rank 0's table must be the single process's, byte for byte; rank 1
+    prints none.  Then once more with ``--shard_dir``."""
+    import shutil
+
+    argv = ["classify", cli["pod5_dir"], "-s", START_MODEL, "-e", END_MODEL,
+            "--batch_size", str(BATCH)]
+    shard_dir = os.path.join(cli["root"], "shards")
+    runs = {}
+    for name, extra in (("plain", []), ("shard_dir", ["--shard_dir",
+                                                      shard_dir])):
+        ranks = _run_ranks(f"dist_classify_{name}", argv + extra)
+        if ranks[0][0] != cli["table"]:
+            raise AssertionError(f"dist_classify ({name}): rank 0's table "
+                                 f"differs from the single process's")
+        if ranks[1][0] != "":
+            raise AssertionError(f"dist_classify ({name}): rank 1 printed "
+                                 f"{len(ranks[1][0])} bytes")
+        for rank, (_out, err, _s, result) in enumerate(ranks):
+            if "over gloo (ranks share a card)" not in err:
+                raise AssertionError(f"dist_classify: rank {rank} is not on "
+                                     f"gloo for ranks sharing the card")
+            # Two models: 15 K1 launches per model per batch.
+            _check_launches(result["launches"], _logged_batches(err),
+                            {"conv1d_bn_relu": 30, "trunk_megakernel": 0},
+                            f"dist_classify ({name}) rank {rank}")
+        runs[name] = {
+            "seconds": [r[2] for r in ranks],
+            "reads_per_s_logged": [_cli_throughput(r[1]) for r in ranks],
+            "batches": [_logged_batches(r[1]) for r in ranks],
+            "launches": [r[3]["launches"] for r in ranks]}
+    manifests = sorted(n for n in os.listdir(shard_dir)
+                       if n.startswith("manifest_"))
+    if manifests != ["manifest_h0000.json", "manifest_h0001.json"]:
+        raise AssertionError(f"dist_classify: manifests {manifests}")
+    emit("dist_classify", ranks=2, files=len(os.listdir(cli["pod5_dir"])),
+         rows=len(cli["table"].splitlines()) - 1, table_identical=True,
+         manifests=manifests, single_seconds_pool=cli["seconds_pool"],
+         single_reads_per_s_pool=cli["reads_per_s_pool"], **runs)
+    shutil.rmtree(cli["root"], ignore_errors=True)
+
+
+def phase_dp_classify(device, reads, unit: dict) -> None:
+    """ClassifyProgram over [cuda:0, cuda:0]: each batch split in two, both
+    halves on the one card, the tables gathered (unit path, and fused on
+    the first 512 reads); then the same program under the pinned slot
+    ring.  K1 at the half batch's shape.  With more than one card, also
+    ``--device_count 2`` through ``build_program``."""
+    import dataclasses
+
+    import torch
+
+    from deepbinner_tpu_torch.models.checkpoint import load_model
+    from deepbinner_tpu_torch.runner.pipeline import ClassifyProgram
+
+    model = load_model(START_MODEL)[0]
+    cfg = _build_program().cfg
+    program = ClassifyProgram(model, cfg, devices=[device, device])
+    program.warm_up(BATCH)
+    calls, stats, seconds, launches = _run_stream(program, reads)
+    _check_launches(launches, stats.batches,
+                    {"conv1d_bn_relu": 30, "trunk_megakernel": 0},
+                    "dp_classify")
+    _same_calls("dp_classify", calls, unit["calls"])
+    _ids, sig, lens, _e, _el = _build_batch(reads, cfg)
+    batch_ms = time_ms(lambda: program.call_packed(sig, lens), 5)
+    # classify --pallas over the two shards: 1 K1 + 1 K2 launch per shard.
+    fused = ClassifyProgram(model, dataclasses.replace(cfg, kernel_path="fused"),
+                            devices=[device, device])
+    fused.warm_up(BATCH)
+    fused_calls, fused_stats, _fs, fused_launches = _run_stream(fused,
+                                                                reads[:512])
+    _check_launches(fused_launches, fused_stats.batches,
+                    {"conv1d_bn_relu": 2, "trunk_megakernel": 2},
+                    "dp_classify (fused)")
+    _same_calls("dp_classify (fused)", fused_calls, unit["calls"])
+    shard = phase_kernels(device, n=WINDOWS // 2, line="kernel_unit_shard")
+    phase_pool_ring(reads, unit, program=program, phase="dp_pool_ring")
+    multi_card = "not run: 1 card"
+    if torch.cuda.device_count() > 1:
+        real = _build_program(extra=["--device_count", "2"])
+        if len(set(real.devices)) != 2:
+            raise AssertionError(f"--device_count 2 gave {real.devices}")
+        real.warm_up(BATCH)
+        real_calls, real_stats, real_s, real_launches = _run_stream(real, reads)
+        _check_launches(real_launches, real_stats.batches,
+                        {"conv1d_bn_relu": 30, "trunk_megakernel": 0},
+                        "dp_classify --device_count 2")
+        _same_calls("dp_classify --device_count 2", real_calls, unit["calls"])
+        multi_card = {"devices": [str(d) for d in real.devices],
+                      "seconds": real_s, "reads_per_s": len(reads) / real_s}
+    emit("dp_classify", devices=[str(d) for d in program.devices],
+         reads=len(reads), batches=stats.batches, seconds=seconds,
+         reads_per_s=len(reads) / seconds, launches=launches,
+         launches_per_batch={k: v / stats.batches for k, v in launches.items()},
+         same_calls_as_classify=len(calls), device_batch_ms=batch_ms,
+         classify_device_batch_ms=unit["device_batch_ms"],
+         fused_launches=fused_launches, fused_batches=fused_stats.batches,
+         shard_windows=WINDOWS // 2, shard_k1_max_abs_err=shard["max_abs_err"],
+         shard_k1_ms=shard["ms"], shard_k1_bound_ms=shard["bound_ms"],
+         multi_card=multi_card)
+
+
+def _build_batch(reads, cfg):
+    from deepbinner_tpu_torch.runner.executor import build_batch
+
+    return build_batch(reads[:BATCH], cfg.preprocess, BATCH, False)
+
+
+def phase_dp_train(train: dict) -> None:
+    """Two ranks of `train` (gloo on CUDA tensors, both on the one card)
+    and one process on the ``train`` phase's rows at the flagship width:
+    the first 5 steps in float64 within 1e-4 relative of one process's;
+    then DP_TRAIN_EPOCHS epochs in f32 through the CLI, the ranks' state
+    bit-identical after every epoch, the first 5 f32 losses reported, one
+    ``.dbt`` at the accuracy floor through K1."""
+    import shutil
+    import statistics
+
+    root = train["root"]
+    f64_single = os.path.join(root, "f64_single.json")
+    _f64_steps(train["balanced"], f64_single)
+    with open(f64_single) as handle:
+        single_f64 = json.load(handle)
+    f64_ranks = _run_ranks("dp_train_f64", ["f64_steps", train["balanced"]])
+    if {r[3]["dtype"] for r in f64_ranks} | {single_f64["dtype"]} != {
+            "torch.float64"}:
+        raise AssertionError("dp_train: the float64 steps ran in another dtype")
+    f64 = {"single": single_f64["losses"],
+           "ranks": [r[3]["losses"] for r in f64_ranks]}
+    f64["rel"] = [abs(got - want) / abs(want) for got, want in
+                  zip(f64["ranks"][0], f64["single"])]
+    if (len(f64["ranks"][0]) != DP_F64_STEPS or max(f64["rel"]) > 1e-4
+            or f64["ranks"][0] != f64["ranks"][1]):
+        raise AssertionError(f"dp_train: float64 steps {f64}")
+
+    single_out = os.path.join(root, "dp_single.dbt")
+    ranks_out = os.path.join(root, "dp_ranks.dbt")
+    with _watch_trainer() as single:
+        _run_cli(_train_argv(train["balanced"], single_out, DP_TRAIN_EPOCHS))
+    ranks = _run_ranks("dp_train", _train_argv(
+        train["balanced"], ranks_out, DP_TRAIN_EPOCHS))
+    single_losses = [float(l) for _s, _e, l in single["steps"]]
+    rank_results = [r[3] for r in ranks]
+    for rank, result in enumerate(rank_results):
+        if "(rank %d of 2)" % rank not in ranks[rank][1]:
+            raise AssertionError(f"dp_train: rank {rank} did not train as "
+                                 f"rank {rank} of 2")
+        if len(result["losses"]) != len(single_losses):
+            raise AssertionError(f"dp_train: rank {rank} took "
+                                 f"{len(result['losses'])} steps, one "
+                                 f"process {len(single_losses)}")
+    # Reported, not bound: in f32 the ranks' sums round otherwise, and
+    # AdamW's first steps move every weight by about lr whatever the size
+    # of its gradient, so a near-zero gradient whose sign flips moves it by
+    # 2 lr (5.6e-4 relative by step 4 at batch 256 on an H100).
+    rel = [abs(got - want) / abs(want) for got, want in
+           zip(rank_results[0]["losses"][:5], single_losses[:5])]
+    if rank_results[0]["digests"] != rank_results[1]["digests"]:
+        raise AssertionError("dp_train: the ranks' states differ after an "
+                             "epoch")
+    if rank_results[0]["losses"] != rank_results[1]["losses"]:
+        raise AssertionError("dp_train: the ranks logged other losses")
+    if os.path.exists(ranks_out + ".tmp") or not os.path.exists(ranks_out):
+        raise AssertionError("dp_train: rank 0 wrote no .dbt")
+    program = _build_program(start_model=ranks_out)
+    program.warm_up(BATCH)
+    floor_reads, floor_truth = _floor_reads()
+    calls, stats, _seconds, launches = _run_stream(program, floor_reads)
+    _check_launches(launches, stats.batches,
+                    {"conv1d_bn_relu": 15, "trunk_megakernel": 0}, "dp_train")
+    exact, wrong = _score(calls, floor_truth)
+    if wrong or exact < 38:
+        raise AssertionError(f"dp_train: the ranks' model's accuracy floor: "
+                             f"{exact}/40 exact, {wrong} wrong barcodes")
+    per_epoch = len(single_losses) // DP_TRAIN_EPOCHS
+    single_ms = [s.elapsed_time(e) for s, e, _l in single["steps"][per_epoch:]]
+    emit("dp_train", epochs=DP_TRAIN_EPOCHS, steps=len(single_losses),
+         batch=TRAIN_BATCH, f64_first5_rel=f64["rel"],
+         f64_single_losses=f64["single"], f64_rank_losses=f64["ranks"][0],
+         f32_first5_rel=rel,
+         single_losses=single_losses, rank_losses=rank_results[0]["losses"],
+         single_val_accuracy=[e["accuracy"] for e in single["evals"]],
+         rank_val_accuracy=[e["accuracy"] for e in rank_results[0]["evals"]],
+         ranks_bit_identical_each_epoch=True,
+         single_step_ms_median=statistics.median(single_ms),
+         rank_step_ms_median=[statistics.median(r["step_ms"][per_epoch:])
+                              for r in rank_results],
+         rank_step_note="two ranks sharing one card over gloo (host copies "
+                        "and TCP on localhost): not NCCL's time",
+         rank_seconds=[r[2] for r in ranks],
+         floor_exact=exact, floor_wrong=wrong, floor_launches=launches)
     shutil.rmtree(root, ignore_errors=True)
-    return line
 
 
 def _child_pids() -> list:
@@ -1657,10 +2119,11 @@ def run_phases(device, smi: str) -> dict:
     phase_split3(reads[:512], unit["calls"])
     phase_tf32(reads)
     phase_pool_ring(reads, unit)
+    phase_dp_classify(device, reads, unit)
     phase_native(probe)
-    phase_cli(probe)
+    phase_dist_classify(phase_cli(probe))
     phase_realtime(probe)
-    phase_train(device)
+    phase_dp_train(phase_train(device))
 
     # K2's numbers are those of the "all" segment, the one launch per batch
     # that classify --pallas makes; every segment's are on its own line.

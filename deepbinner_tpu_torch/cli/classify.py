@@ -7,9 +7,11 @@ byte-identical to the JAX package's for the same reads and weights.
 
 Files are decoded and batches built in reader worker processes on the card
 (``--reader_processes``, the JAX CLI's default on an accelerator) or in
-reader threads on the CPU.  One process on one device: the multi-host
-sharding of the JAX package is not ported yet, so the shard manifest always
-records process 0 of 1.
+reader threads on the CPU.  Each batch is split over the process's devices
+(``--device_count``; 0 = all its cards).  Under a process group of several
+ranks (:mod:`deepbinner_tpu_torch.parallel.dist`) each rank classifies its
+shard of the sorted file list, the tables are gathered, and only rank 0
+prints the merged table, byte-identical to a single process's.
 """
 
 from __future__ import annotations
@@ -51,9 +53,6 @@ def build_program(args):
     from deepbinner_tpu_torch.ops.preprocess import PreprocessConfig
     from deepbinner_tpu_torch.runner.pipeline import ClassifyConfig, ClassifyProgram
 
-    if int(getattr(args, "device_count", 0) or 0) > 1:
-        quit_with_error("--device_count above 1 is not ported yet; the port "
-                        "classifies on one device")
     try:
         device = resolve_device(getattr(args, "device", "cuda"))
     except RuntimeError as exc:  # --device cuda without a card
@@ -103,9 +102,29 @@ def build_program(args):
                          dual_model=end_model is not None,
                          kernel_path="fused" if getattr(args, "pallas", False)
                          else "unit")
-    program = ClassifyProgram(model, cfg, end_model=end_model, device=device)
+    program = ClassifyProgram(model, cfg, end_model=end_model,
+                              devices=_data_parallel_devices(args, device))
     log(f"  device: {program.device}")
     return program, net_cfg
+
+
+def _data_parallel_devices(args, device) -> list:
+    """This process's devices for the run, as the JAX CLI picks them:
+    ``--device_count`` of them (0 = all; more than the process has is an
+    error), dropped to the largest count that divides the batch size."""
+    from deepbinner_tpu_torch.parallel import mesh
+
+    requested = int(getattr(args, "device_count", 0) or 0)
+    try:
+        devices = mesh.local_devices(device.type, requested)
+    except ValueError as exc:
+        quit_with_error(f"--device_count {requested}: {exc}")
+    use = len(devices)
+    while use > 1 and args.batch_size % use:
+        use -= 1
+    if use > 1:
+        log(f"  data-parallel over {use} device(s)")
+    return devices[:use]
 
 
 def result_to_row(result, verbose: bool, dual: bool) -> str:
@@ -255,14 +274,16 @@ def _classify_resumable(
     reclassified; a shard's unreadable files are recorded beside it and
     retried on the next run.  Returns (rows, resumed_read_count).
     """
-    host = 0
+    from deepbinner_tpu_torch.parallel import dist
+
+    host = dist.process_index()
     ordered = sorted(files)
     digest = hashlib.sha256("\n".join(ordered).encode()).hexdigest()
     os.makedirs(shard_dir, exist_ok=True)
     manifest_path = os.path.join(shard_dir, f"manifest_h{host:04d}.json")
     manifest = {"input_sha256": digest, "shard_files": shard_files,
                 "n_files": len(ordered), "run_fingerprint": fingerprint,
-                "process_count": 1}
+                "process_count": dist.process_count()}
     if os.path.exists(manifest_path):
         with open(manifest_path) as handle:
             found = json.load(handle)
@@ -331,10 +352,13 @@ def _classify_resumable(
 
 
 def classify_fast5_files(args) -> None:
+    from deepbinner_tpu_torch.parallel import dist
     from deepbinner_tpu_torch.runner.executor import ExecutorStats
 
     files = _resolve_inputs(args.input)
-    section(f"Classifying {len(files)} fast5 file(s)")
+    shard = dist.shard_files(files)
+    section(f"Classifying {len(files)} fast5 file(s)"
+            + (f" (this host: {len(shard)})" if len(shard) != len(files) else ""))
 
     shard_dir = getattr(args, "shard_dir", None)
     if shard_dir and args.verbose:
@@ -353,12 +377,12 @@ def classify_fast5_files(args) -> None:
     try:
         if shard_dir:
             rows, resumed_reads = _classify_resumable(
-                runner, files, shard_dir,
+                runner, shard, shard_dir,
                 int(getattr(args, "shard_files", 0) or 256), progress,
                 _run_fingerprint(args, program),
             )
         else:
-            for result in runner.classify(files):
+            for result in runner.classify(shard):
                 rows.append((result.read_id,
                              table.class_index_to_call(result.call)))
                 if args.verbose:
@@ -375,21 +399,27 @@ def classify_fast5_files(args) -> None:
             + (f"; first error: {errors[0]}" if errors else "") + ")")
         # Every input failing is a format/environment problem: an empty
         # table would silently discard the dataset.
-        if stats.reads == 0 and resumed_reads == 0 and files:
+        if stats.reads == 0 and resumed_reads == 0 and shard:
             quit_with_error(
                 f"all {stats.failed_files} input file(s) were unreadable; "
                 f"refusing to emit an empty classification table"
             )
     log(f"  throughput: {stats.reads / max(elapsed, 1e-9):.1f} reads/s "
-        f"({stats.reads} classified"
+        f"(this host; {stats.reads} classified in {stats.batches} batch(es)"
         + (f" + {resumed_reads} resumed" if resumed_reads else "") + ")")
 
+    # Verbose rows are gathered and sorted like the plain table, so both
+    # are the same at every process count.
     if args.verbose:
-        print(table.header_line(True, dual))
-        for row in sorted(set(verbose_rows)):
-            print(row)
+        merged_lines = dist.merge_lines(verbose_rows)
+        if dist.should_emit_table():
+            print(table.header_line(True, dual))
+            for row in merged_lines:
+                print(row)
     else:
-        print(table.header_line(False, dual))
-        for read_id, call in table.merge_shard_tables([rows]):
-            print(table.format_row(read_id, call))
+        merged = dist.merge_call_tables(rows)
+        if dist.should_emit_table():
+            print(table.header_line(False, dual))
+            for read_id, call in merged:
+                print(table.format_row(read_id, call))
     sys.stdout.flush()

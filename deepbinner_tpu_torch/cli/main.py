@@ -12,11 +12,20 @@ differences in `classify` and `realtime`:
 - ``--pallas`` runs the trunk after stem1 as one launch of the CUDA
   megakernel per batch, as the JAX CLI's ``--pallas`` runs the Pallas
   megakernel; without it every unit is one launch of the unit kernel;
-- ``--device_count`` above 1 is an error (one device per process for now).
+- ``--device_count`` counts this process's cards (on ``--device cpu``,
+  entries of the CPU), as the JAX CLI counts its local devices.
 
 In `train`, ``--device {cuda,cpu}`` (default ``cuda``) picks the device as
-in `classify`, and ``--dp`` above 1 is an error (data-parallel training
-comes with the multi-GPU slice).
+in `classify`, and ``--dp N`` above 1 starts N ranks of one data-parallel
+run on this host, one per card (``train/trainer.py``).
+
+A multi-process or multi-host job is launched with torch's own variables
+(``torchrun`` sets them): ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``, ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` take the place of the
+JAX CLI's ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+``JAX_PROCESS_ID``.  `classify`, `realtime` and `train` join the process
+group before any workload (:func:`deepbinner_tpu_torch.parallel.dist.maybe_initialize`)
+and leave it on every way out.
 
 Every subcommand runs.  `simulate --container fast5` and `multifast5`
 write through h5py and fail with its import error where it is missing;
@@ -139,7 +148,7 @@ def _add_classify_common(parser: argparse.ArgumentParser) -> None:
                       help="Device to classify on (default cuda; cpu must "
                            "be asked for)")
     perf.add_argument("--device_count", type=int, default=0,
-                      help="Limit devices used (0 = all; the port uses one)")
+                      help="Limit devices used (0 = all local devices)")
     # Reference-compat no-ops:
     perf.add_argument("--intra_op_parallelism_threads", type=int, default=12,
                       help=argparse.SUPPRESS)
@@ -233,8 +242,7 @@ def _add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--size", default="full", choices=["full", "tiny"],
                         help="Network size preset (tiny = fast CI training)")
     parser.add_argument("--dp", type=int, default=0,
-                        help="Data-parallel devices (0 or 1: one device; "
-                             "more is not ported yet)")
+                        help="Data-parallel devices (0 = all local devices)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="Device to train on (default cuda; cpu must be "
                              "asked for)")
@@ -263,6 +271,27 @@ def _add_simulate_args(parser: argparse.ArgumentParser) -> None:
 def main(argv: Optional[List[str]] = None) -> None:
     args = get_arguments(argv)
     name = args.subparser_name
+    if name not in ("classify", "realtime", "train"):
+        _run(name, args)
+        return
+    from deepbinner_tpu_torch.parallel import dist
+    from deepbinner_tpu_torch.utils.log import quit_with_error
+
+    # A rank of a multi-process job joins its process group before any
+    # workload, as the JAX CLI initialises jax.distributed.
+    try:
+        dist.maybe_initialize(getattr(args, "device", "cuda"))
+    except (RuntimeError, ValueError) as exc:
+        quit_with_error(f"the process group did not come up: {exc}")
+    ok = False
+    try:
+        _run(name, args)
+        ok = True
+    finally:
+        dist.shutdown(ok)
+
+
+def _run(name: str, args: argparse.Namespace) -> None:
     # Lazy imports: each workload pulls in only what it needs.
     if name == "classify":
         from deepbinner_tpu_torch.cli.classify import classify_fast5_files

@@ -15,7 +15,12 @@ stage.  The classify program runs the kernel composition of
 ``forward(windows, train=True, generator=g)`` is flax's
 ``apply(..., train=True)``: GaussianNoise at the input, each unit's
 BatchNorm on the batch statistics (which also updates the running ones),
-dropout before the dense layer.  The mode is an argument, never
+dropout before the dense layer.  With ``shard=`` (a
+:class:`~deepbinner_tpu_torch.parallel.dist.RowShard`) the windows are one
+rank's rows of a global batch: the noise and the dropout mask are drawn at
+the global batch's shape and cut to those rows, and BatchNorm's statistics
+are summed over the ranks (the JAX trainer's one jit over the global batch:
+SyncBN).  The mode is an argument, never
 ``nn.Module.training``, which starts as True and would put every classify
 path that calls ``model(...)`` on batch statistics.  The training forward
 runs in PyTorch's ``(N, C, L)`` layout on ``F.conv1d`` (the JAX trainer
@@ -77,7 +82,7 @@ class ConvBNRelu(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv1d_bn_relu_reference(x, *self.folded(), dilation=self.dilation)
 
-    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         """The training unit on ``(N, C_in, L)``: conv, BatchNorm on the batch
         statistics, ReLU; the running statistics take one momentum step.
 
@@ -85,14 +90,22 @@ class ConvBNRelu(nn.Module):
         E[x²] − E[x]² clipped at 0, over every row of the batch (padding rows
         of weight 0 included).  The running variance takes the biased batch
         variance, as flax's does (``torch.nn.BatchNorm1d`` takes the unbiased
-        one, with its momentum the other way round).
+        one, with its momentum the other way round).  Under ``shard`` the
+        batch is the global one: Σy and Σy² are summed over the ranks.
         """
         taps = self.kernel.shape[0]
         y = F.conv1d(x, self.kernel.permute(2, 1, 0),
                      padding=(taps - 1) // 2 * self.dilation,
                      dilation=self.dilation)
-        mean = y.mean(dim=(0, 2))
-        var = torch.clamp((y * y).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        if shard is None:
+            mean = y.mean(dim=(0, 2))
+            var = torch.clamp((y * y).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        else:
+            count = shard.total * y.shape[2]
+            sums = shard.sum(torch.stack([y.sum(dim=(0, 2)),
+                                          (y * y).sum(dim=(0, 2))]))
+            mean = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
         with torch.no_grad():
             self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
             self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -132,13 +145,13 @@ class InceptionModule(nn.Module):
                           self.branch_dilated(x),
                           self.branch_pool(pool3_same(x))], dim=-1)
 
-    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         """Training forward on ``(N, C, L)`` (max pool padding is -inf)."""
         pooled = F.max_pool1d(x, 3, stride=1, padding=1)
-        return torch.cat([self.branch1x1.forward_train(x),
-                          self.branch3.forward_train(x),
-                          self.branch_dilated.forward_train(x),
-                          self.branch_pool.forward_train(pooled)], dim=1)
+        return torch.cat([self.branch1x1.forward_train(x, shard),
+                          self.branch3.forward_train(x, shard),
+                          self.branch_dilated.forward_train(x, shard),
+                          self.branch_pool.forward_train(pooled, shard)], dim=1)
 
 
 class DemuxNet(nn.Module):
@@ -171,10 +184,12 @@ class DemuxNet(nn.Module):
         nn.init.zeros_(self.classifier.bias)
 
     def forward(self, windows: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Logits; ``train=True`` draws noise and dropout from ``generator``."""
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
+        """Logits; ``train=True`` draws noise and dropout from ``generator``
+        (``shard``: the windows are one rank's rows of a global batch)."""
         if train:
-            return self._forward_train(windows, generator)
+            return self._forward_train(windows, generator, shard)
         x = windows.float()
         if x.dim() == 2:
             x = x[:, :, None]
@@ -188,7 +203,8 @@ class DemuxNet(nn.Module):
         return self.classifier(x)
 
     def _forward_train(self, windows: torch.Tensor,
-                       generator: Optional[torch.Generator]) -> torch.Tensor:
+                       generator: Optional[torch.Generator],
+                       shard) -> torch.Tensor:
         cfg = self.config
         x = windows.to(self.classifier.weight.dtype)  # f32 unless made f64
         if x.dim() == 3:
@@ -197,22 +213,33 @@ class DemuxNet(nn.Module):
             raise ValueError("a training forward with noise or dropout needs "
                              "a torch.Generator")
         if cfg.noise_stddev > 0:  # GaussianNoise
-            x = x + cfg.noise_stddev * torch.randn(
-                x.shape, generator=generator, device=x.device)
+            x = x + cfg.noise_stddev * _draw(torch.randn, x, generator, shard)
         x = x[:, None, :]  # (N, 1, L)
-        x = F.max_pool1d(self.stem2.forward_train(self.stem1.forward_train(x)), 2)
+        x = F.max_pool1d(self.stem2.forward_train(
+            self.stem1.forward_train(x, shard), shard), 2)
         for i in range(len(cfg.block_features)):
-            x = getattr(self, f"block{i}_conv1").forward_train(x)
-            x = F.max_pool1d(getattr(self, f"block{i}_conv2").forward_train(x), 2)
+            x = getattr(self, f"block{i}_conv1").forward_train(x, shard)
+            x = F.max_pool1d(getattr(self, f"block{i}_conv2").forward_train(
+                x, shard), 2)
         for i in range(len(cfg.inception_features)):
-            x = F.max_pool1d(getattr(self, f"inception{i}").forward_train(x), 2)
-        x = self.head_conv.forward_train(x).mean(dim=2)
+            x = F.max_pool1d(getattr(self, f"inception{i}").forward_train(
+                x, shard), 2)
+        x = self.head_conv.forward_train(x, shard).mean(dim=2)
         if cfg.dropout_rate > 0:  # flax Dropout: keep with 1 - rate, scale up
             keep = 1.0 - cfg.dropout_rate
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+            mask = _draw(torch.rand, x, generator, shard) < keep
             x = torch.where(mask, x / keep, torch.zeros_like(x))
         return self.classifier(x)
+
+
+def _draw(sample, x: torch.Tensor, generator: Optional[torch.Generator],
+          shard) -> torch.Tensor:
+    """``sample`` (``torch.randn`` or ``torch.rand``) at ``x``'s shape, or
+    under ``shard`` at the global batch's shape, cut to this rank's rows."""
+    if shard is None:
+        return sample(x.shape, generator=generator, device=x.device)
+    return sample((shard.total, *x.shape[1:]), generator=generator,
+                  device=x.device)[shard.rows]
 
 
 def _lecun_normal_(tensor: torch.Tensor, fan_in: int,

@@ -64,8 +64,10 @@ def combine_window_probs(
                                 best_window)
         combined = 0.5 * (row(best_window) + row(neighbour))
     any_valid = window_mask.any(dim=1, keepdim=True)
-    none_row = torch.zeros(NUM_CLASSES, dtype=probs.dtype, device=probs.device)
-    none_row[0] = 1.0
+    # Built on the device: ``none_row[0] = 1.0`` would copy a host scalar to
+    # the card, which waits for the card's queue to drain.
+    none_row = (torch.arange(NUM_CLASSES, device=probs.device) == 0).to(
+        probs.dtype)
     return torch.where(any_valid, combined, none_row[None, :])
 
 

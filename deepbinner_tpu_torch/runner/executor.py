@@ -14,8 +14,9 @@ one of two sources:
 Batches are padded to one fixed size.  CUDA launches are asynchronous, so
 while the card works on batch i the host builds batch i+1; a small
 in-flight deque blocks only on the oldest result's copy back to the host.
-A shared-memory slot goes back to the workers only once a CUDA event
-recorded right after its batch's upload has completed.
+A shared-memory slot goes back to the workers only once the CUDA events
+recorded right after its batch's upload, one on each of the program's
+devices, have all completed.
 
 Per-file read errors are skipped and counted.  When the consumer abandons
 a pass, the prefetch feeder is stopped and joined and the batch generator
@@ -197,35 +198,26 @@ MIN_SHM_SLOTS = IN_FLIGHT + PREFETCH + 2
 @dataclasses.dataclass
 class _Pending:
     """One dispatched batch: its ids, its packed result on the device, and
-    for a shared-memory batch the slot's release and the upload's event."""
+    for a shared-memory batch the slot's release and the upload's events
+    (one per device the batch's rows went to)."""
 
     ids: List[str]
     packed: torch.Tensor
     release: Optional[Callable[[], None]] = None
-    uploaded: Optional["torch.cuda.Event"] = None
+    uploaded: Sequence["torch.cuda.Event"] = ()
 
     def release_if_uploaded(self, wait: bool = False) -> None:
-        """Give the slot back once the upload has completed (``wait``:
-        block until it has)."""
+        """Give the slot back once every upload has completed (``wait``:
+        block until they have)."""
         if self.release is None:
             return
-        if self.uploaded is not None:
-            if wait:
-                self.uploaded.synchronize()
-            elif not self.uploaded.query():
-                return
+        if wait:
+            for event in self.uploaded:
+                event.synchronize()
+        elif not all(event.query() for event in self.uploaded):
+            return
         self.release()
         self.release = None
-
-
-def _upload_event(device: torch.device) -> Optional["torch.cuda.Event"]:
-    """An event on the current stream, recorded right after an upload (None
-    on the CPU, where the upload is done when it returns)."""
-    if device.type != "cuda":
-        return None
-    event = torch.cuda.Event()
-    event.record()
-    return event
 
 
 def classify_batches(
@@ -239,10 +231,11 @@ def classify_batches(
 
     A batch is a 5-tuple ``(ids, start, start_len, end, end_len)`` of owned
     arrays, or a reader pool's 6-tuple with a ``release`` that gives its
-    shared-memory slot back.  A slot is released once the CUDA event
-    recorded right after its upload has completed: checked after every
-    dispatch, and at the latest when the batch's result comes back to the
-    host (the copy back is ordered after the upload).
+    shared-memory slot back.  A slot is released once the CUDA events
+    recorded right after its upload, on each of the program's devices, have
+    all completed: checked after every dispatch, and at the latest when the
+    batch's result comes back to the host (the copy back is ordered after
+    the uploads).
 
     Up to ``in_flight`` batches are enqueued on the device before the
     oldest result is copied back.  ``prefetch`` > 0 pulls ``batches`` on a
@@ -318,9 +311,9 @@ def classify_batches(
             ids, start, start_len, end, end_len = batch[:5]
             release = batch[5] if len(batch) > 5 else None
             uploaded = program.upload(start, start_len, end, end_len)
-            event = _upload_event(program.device) if release is not None else None
+            events = program.upload_events() if release is not None else ()
             pending.append(_Pending(ids, program.call_packed(*uploaded),
-                                    release, event))
+                                    release, events))
             stats.batches += 1
             for entry in pending:
                 entry.release_if_uploaded()

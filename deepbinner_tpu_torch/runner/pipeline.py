@@ -1,9 +1,13 @@
-"""The classify program: trim → normalise → window → CNN → call, on one device.
+"""The classify program: trim → normalise → window → CNN → call, on one
+device or data parallel over several.
 
 Counterpart of ``deepbinner_tpu/runner/pipeline.py``.  PyTorch runs eagerly,
 so there is no compile step: :class:`ClassifyProgram` folds each model's
-BatchNorm and puts its weights on the device once, then every batch is a
-sequence of launches on the current stream.  On a CUDA device the CNN
+BatchNorm and puts its weights on each of its devices once, then every batch
+is a sequence of launches on each device's current stream.  With D devices
+(the JAX program's ``('data',)`` mesh) a batch's rows are split into D
+contiguous parts, each part runs on its device, and the D call tables are
+gathered in row order on the first.  On a CUDA device the CNN
 runs one of the kernel compositions of
 :mod:`~deepbinner_tpu_torch.models.kernel_apply`, chosen by
 ``ClassifyConfig.kernel_path``; on the CPU the same composition runs each
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ from deepbinner_tpu_torch.ops.calling import (
     reconcile_calls,
 )
 from deepbinner_tpu_torch.ops.preprocess import PreprocessConfig, preprocess_batch
+from deepbinner_tpu_torch.parallel.mesh import split_rows
 
 
 class CallTable(NamedTuple):
@@ -180,12 +185,21 @@ def full_f32() -> Iterator[None]:
             matmul.allow_tf32 = allow_matmul
 
 
-class ClassifyProgram:
-    """A classify step bound to its model(s), config and device.
+def _on(device: torch.device):
+    """``device`` as the current CUDA device inside (nothing on the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
-    One instance per run.  The weights are folded and put on the device
+
+class ClassifyProgram:
+    """A classify step bound to its model(s), config and device(s).
+
+    One instance per run.  The weights are folded and put on each device
     when it is built; each call uploads one batch, runs the step and
-    returns the result on the device (``device=None`` means the card).
+    returns the result on the (first) device (``device=None`` means the
+    card).  ``devices`` (a list; one entry may repeat) makes it data
+    parallel: each call splits the batch's rows over them in order.
     """
 
     def __init__(
@@ -194,55 +208,113 @@ class ClassifyProgram:
         cfg: ClassifyConfig,
         end_model: Optional[DemuxNet] = None,
         device=None,
+        devices: Optional[Sequence] = None,
     ) -> None:
         if cfg.dual_model and end_model is None:
             raise ValueError("dual_model requires end_model")
+        if devices is not None and not devices:
+            raise ValueError("devices must name at least one device")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.start_net = fold_network(model, self.device)
-        self.end_net = (fold_network(end_model, self.device)
-                        if end_model is not None else None)
+        self.devices = [resolve_device(d) for d in
+                        (devices if devices is not None else [device])]
+        self.device = self.devices[0]
+        nets = {}
+        for dev in self.devices:
+            if dev not in nets:
+                nets[dev] = (fold_network(model, dev),
+                             fold_network(end_model, dev)
+                             if end_model is not None else None)
+        self.nets = [nets[dev] for dev in self.devices]
+        self.start_net, self.end_net = self.nets[0]
 
-    def _upload(self, array) -> Optional[torch.Tensor]:
+    def _upload(self, array, device: torch.device) -> Optional[torch.Tensor]:
         if array is None:
             return None
         tensor = torch.as_tensor(array)
         # Host memory that is already pinned (a reader pool's registered
         # shared-memory slot) goes to the card as it is; anything else is
         # staged through a pinned copy so that the upload is asynchronous.
-        if (self.device.type == "cuda" and tensor.device.type == "cpu"
+        if (device.type == "cuda" and tensor.device.type == "cpu"
                 and not tensor.is_pinned()):
             tensor = tensor.pin_memory()
-        return tensor.to(self.device, non_blocking=True)
+        with _on(device):
+            return tensor.to(device, non_blocking=True)
+
+    def _upload_parts(self, array) -> Optional[List[torch.Tensor]]:
+        """Rows of ``array`` split over the devices in order (a list of
+        parts already uploaded is returned as it is)."""
+        if array is None or isinstance(array, list):
+            return array
+        tensor = torch.as_tensor(array)
+        return [self._upload(tensor[lo:hi], dev) for (lo, hi), dev in
+                zip(split_rows(tensor.shape[0], len(self.devices)),
+                    self.devices)]
 
     def upload(self, start_signal, start_lengths, end_signal=None,
-               end_lengths=None) -> Tuple[Optional[torch.Tensor], ...]:
-        """One batch's arrays on the device, enqueued on the current stream
-        (the host memory of pinned arrays is read until the copies are
-        done)."""
-        return tuple(self._upload(a) for a in (start_signal, start_lengths,
-                                               end_signal, end_lengths))
+               end_lengths=None) -> Tuple:
+        """One batch's arrays on the device(s), enqueued on each device's
+        current stream (the host memory of pinned arrays is read until the
+        copies are done).  With one device, the four tensors; with D, four
+        lists of D row parts."""
+        arrays = (start_signal, start_lengths, end_signal, end_lengths)
+        if len(self.devices) == 1:
+            return tuple(self._upload(a, self.device) for a in arrays)
+        return tuple(self._upload_parts(a) for a in arrays)
+
+    def upload_events(self) -> List["torch.cuda.Event"]:
+        """One event per device, recorded on its current stream: once all
+        have completed, every upload enqueued before is done (none on the
+        CPU, where an upload is done when it returns)."""
+        events = []
+        if self.device.type == "cuda":
+            for dev in dict.fromkeys(self.devices):
+                with torch.cuda.device(dev):
+                    event = torch.cuda.Event()
+                    event.record()
+                    events.append(event)
+        return events
+
+    def _tables(self, arrays) -> List[CallTable]:
+        """The call table of each device's rows."""
+        parts = self.upload(*arrays)
+        if len(self.devices) == 1:
+            return [classify_step(self.cfg, self.start_net, self.end_net,
+                                  *parts)]
+        tables = []
+        for k, dev in enumerate(self.devices):
+            with _on(dev):
+                tables.append(classify_step(
+                    self.cfg, *self.nets[k],
+                    *(None if p is None else p[k] for p in parts)))
+        return tables
 
     def __call__(self, start_signal, start_lengths, end_signal=None,
                  end_lengths=None) -> CallTable:
         with full_f32(), torch.inference_mode():
-            return classify_step(
-                self.cfg, self.start_net, self.end_net,
-                *self.upload(start_signal, start_lengths, end_signal,
-                             end_lengths),
-            )
+            tables = self._tables((start_signal, start_lengths, end_signal,
+                                   end_lengths))
+            if len(tables) == 1:
+                return tables[0]
+            return CallTable(*(torch.cat([t.to(self.device) for t in field])
+                               for field in zip(*tables)))
 
     def call_packed(self, start_signal, start_lengths, end_signal=None,
                     end_lengths=None) -> torch.Tensor:
-        """The CallTable packed into one (B, 3+2C) f32 tensor on the device;
-        the streaming executor unpacks it with :func:`unpack_call_table`."""
+        """The CallTable packed into one (B, 3+2C) f32 tensor on the (first)
+        device; the streaming executor unpacks it with
+        :func:`unpack_call_table`.  With D devices each packs its rows and
+        the D tables are gathered in row order."""
         with full_f32(), torch.inference_mode():
-            return pack_call_table(
-                self(start_signal, start_lengths, end_signal, end_lengths))
+            packed = [pack_call_table(t) for t in self._tables(
+                (start_signal, start_lengths, end_signal, end_lengths))]
+            if len(packed) == 1:
+                return packed[0]
+            return torch.cat([p.to(self.device) for p in packed])
 
     def warm_up(self, batch_size: int) -> None:
-        """Run one all-zero batch end to end (kernel build, first launches,
-        first copy back) so the first real batch runs at steady state."""
+        """Run one all-zero batch end to end on every device (kernel build,
+        first launches, first copy back) so the first real batch runs at
+        steady state."""
         pre = self.cfg.preprocess
         wire = np.int8 if pre.wire in ("int8", "int4") else np.int16
         sig = np.zeros((batch_size, pre.wire_cols), wire)

@@ -1,4 +1,5 @@
-"""`train`: DemuxNet training with in-step augmentation, on one device.
+"""`train`: DemuxNet training with in-step augmentation, on one device or
+data parallel over several ranks.
 
 Counterpart of ``deepbinner_tpu/train/trainer.py``.  The host ships raw
 ``(B, signal_size)`` rows; each step crops every row at a random offset to
@@ -14,7 +15,17 @@ What differs from the JAX trainer:
   needs no saved generator state.  The draws cannot equal JAX's.
 - Initial weights come from :func:`~deepbinner_tpu_torch.models.network.init_weights`
   (flax's distributions, another generator).
-- One device: ``--dp`` above 1 and multi-host training are not ported yet.
+- Data parallelism is one process per device (PyTorch's idiom), where
+  the JAX trainer jits one step over a mesh.  ``train --dp N`` starts N
+  ranks on this host; a process launched with ``WORLD_SIZE`` above 1 is one
+  rank of a job that may span hosts.  Every rank holds the same global
+  batch (the same TSV and seeded epoch order) and takes its rows of it
+  (:class:`~deepbinner_tpu_torch.parallel.dist.RowShard`).  The step's draws
+  are made at the global batch's shape, BatchNorm's statistics, the loss
+  denominator and the gradients are summed over the ranks, so a step is
+  the one-process step on the global batch, up to the order of its sums;
+  clip and AdamW then run alike on every rank.  Only rank 0 writes
+  checkpoints and the ``.dbt``.
 - Resume replays the host draws of the epochs already trained (fault R4
   of the JAX loop, which draws them again from the first epoch's).
 - Checkpoints hold the port's own state file (``state.pt``: the model's
@@ -44,6 +55,8 @@ from deepbinner_tpu_torch import NUM_CLASSES, resolve_device
 from deepbinner_tpu_torch.models.checkpoint import save_model, to_flax_variables
 from deepbinner_tpu_torch.models.network import DemuxNet, NetworkConfig, init_weights
 from deepbinner_tpu_torch.ops.preprocess import normalise
+from deepbinner_tpu_torch.parallel import dist, mesh
+from deepbinner_tpu_torch.parallel.dist import RowShard
 from deepbinner_tpu_torch.runner.pipeline import full_f32
 from deepbinner_tpu_torch.train import data as data_io
 from deepbinner_tpu_torch.utils.log import log, quit_with_error, section
@@ -109,15 +122,20 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 def augment_crop(signals: torch.Tensor, window: int,
                  generator: Optional[torch.Generator] = None,
-                 offsets=None) -> torch.Tensor:
+                 offsets=None, shard: Optional[RowShard] = None) -> torch.Tensor:
     """Crop each row to ``window`` samples at a random offset in
     ``[0, size - window]``, then z-score the crop.  ``offsets`` (one per row)
-    replaces the draw, so that a test can hand in JAX's."""
+    replaces the draw, so that a test can hand in JAX's.  Under ``shard``
+    the offsets (drawn or given) are the global batch's, cut to this rank's
+    rows."""
     batch, size = signals.shape
     if offsets is None:
-        offsets = torch.randint(0, size - window + 1, (batch,),
+        rows = batch if shard is None else shard.total
+        offsets = torch.randint(0, size - window + 1, (rows,),
                                 generator=generator, device=signals.device)
     offsets = torch.as_tensor(offsets, device=signals.device).long()
+    if shard is not None:
+        offsets = offsets[shard.rows]
     index = offsets[:, None] + torch.arange(window, device=signals.device)
     return normalise(torch.gather(signals, 1, index))
 
@@ -133,17 +151,28 @@ def forward_backward(
     labels: torch.Tensor,
     weights: torch.Tensor,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[RowShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loss Σ(CE·w) / max(Σw, 1) on ``crops`` (z-scored windows) and its
     gradients (into ``.grad``), and the weighted accuracy.  Rows of weight 0
-    still enter the BatchNorm statistics, as in the JAX step."""
-    denom = torch.clamp(weights.sum(), min=1.0)
-    logits = model(crops, train=True, generator=generator)
+    still enter the BatchNorm statistics, as in the JAX step.  Under
+    ``shard`` the rows are one rank's: Σw, the gradients and both metrics
+    are summed over the ranks, so every rank ends with the global batch's."""
+    weight_sum = weights.sum()
+    if shard is not None:
+        weight_sum = dist.all_sum(weight_sum)
+    denom = torch.clamp(weight_sum, min=1.0)
+    logits = model(crops, train=True, generator=generator, shard=shard)
     per_example = F.cross_entropy(logits, labels, reduction="none")
     loss = (per_example * weights).sum() / denom
     loss.backward()
     correct = (logits.detach().argmax(dim=-1) == labels).to(weights.dtype)
-    return loss.detach(), (correct * weights).sum() / denom
+    accuracy = (correct * weights).sum() / denom
+    if shard is None:
+        return loss.detach(), accuracy
+    dist.all_sum_([p.grad for p in model.parameters()])
+    loss, accuracy = dist.all_sum(torch.stack([loss.detach(), accuracy]))
+    return loss, accuracy
 
 
 def train_step(
@@ -155,17 +184,20 @@ def train_step(
     weights: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     offsets=None,
+    shard: Optional[RowShard] = None,
 ) -> Dict[str, torch.Tensor]:
     """One optimiser step; ``weights`` (0/1 per row) masks padding rows.
 
     The final batch of an epoch is padded to the batch size with weight-0
     rows (:func:`iter_epoch_batches`), so no sample is dropped.  The
     generator gives the crop offsets (unless ``offsets`` is given), then
-    the noise, then the dropout mask.
+    the noise, then the dropout mask.  Under ``shard`` the rows are this
+    rank's of the global batch.
     """
     optimizer.zero_grad(set_to_none=True)
-    crops = augment_crop(signals, window, generator, offsets)
-    loss, accuracy = forward_backward(model, crops, labels, weights, generator)
+    crops = augment_crop(signals, window, generator, offsets, shard)
+    loss, accuracy = forward_backward(model, crops, labels, weights, generator,
+                                      shard)
     clip_by_global_norm_([p.grad for p in model.parameters()])
     optimizer.step()
     return {"loss": loss, "accuracy": accuracy}
@@ -189,11 +221,16 @@ def _write_atomic(path: str, write) -> None:
 
 
 class Trainer:
-    """The model, its optimiser and the step count on one device."""
+    """The model, its optimiser and the step count on one device; rank
+    ``rank`` of ``world`` of a data-parallel run (one process per device)
+    where ``world`` is above 1."""
 
-    def __init__(self, cfg: TrainConfig, device=None) -> None:
+    def __init__(self, cfg: TrainConfig, device=None, rank: int = 0,
+                 world: int = 1) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rank = rank
+        self.world = world
         model = init_weights(DemuxNet(cfg.network),
                              torch.Generator().manual_seed(cfg.seed))
         self.model = model.to(self.device)
@@ -204,37 +241,63 @@ class Trainer:
     def _put(self, array, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(array).to(self.device, dtype)
 
+    def _shard(self, total: int) -> Optional[RowShard]:
+        return RowShard(self.rank, self.world, total) if self.world > 1 else None
+
     def run_train_step(self, signals, labels, weights=None,
                        offsets=None) -> Dict[str, torch.Tensor]:
-        """One step on host rows; the metrics stay on the device."""
+        """One step on the global batch's host rows (this rank's are cut
+        from them); the metrics stay on the device."""
         if weights is None:
             weights = np.ones((len(labels),), np.float32)
+        shard = self._shard(len(labels))
+        rows = slice(None) if shard is None else shard.rows
         generator = step_generator(self._data_seed, self.step, self.device)
         with pinned():
             metrics = train_step(
                 self.model, self.optimizer, self.cfg.network.input_length,
-                self._put(signals, torch.float32), self._put(labels, torch.long),
-                self._put(weights, torch.float32), generator, offsets)
+                self._put(signals[rows], torch.float32),
+                self._put(labels[rows], torch.long),
+                self._put(weights[rows], torch.float32), generator, offsets,
+                shard)
         self.step += 1
         return metrics
 
     def run_eval(self, signals: np.ndarray, labels: np.ndarray,
                  batch: int = 512) -> Dict[str, float]:
+        """Mean loss and accuracy on the centre crops.  With several ranks
+        each eval batch is padded to a multiple of them, each rank takes its
+        rows, and the totals, padding left out, are summed over the ranks."""
         totals = {"loss": 0.0, "accuracy": 0.0}
         window = self.cfg.network.input_length
         with pinned():
             for start in range(0, len(labels), batch):
-                metrics = eval_step(
-                    self.model, window,
-                    self._put(signals[start : start + batch], torch.float32),
-                    self._put(labels[start : start + batch], torch.long))
-                totals["loss"] += float(metrics["loss"].sum())
-                totals["accuracy"] += float(metrics["correct"].sum())
+                sig = signals[start : start + batch]
+                lab = labels[start : start + batch]
+                keep, rows = len(lab), slice(None)
+                if self.world > 1:
+                    sig = mesh.pad_to_multiple(sig, self.world)
+                    lab = mesh.pad_to_multiple(lab, self.world)
+                    rows = RowShard(self.rank, self.world, len(lab)).rows
+                    keep = max(0, min(rows.stop, keep) - rows.start)
+                metrics = eval_step(self.model, window,
+                                    self._put(sig[rows], torch.float32),
+                                    self._put(lab[rows], torch.long))
+                # Rows past `keep` are padding, left out of the totals.
+                totals["loss"] += float(metrics["loss"][:keep].sum())
+                totals["accuracy"] += float(metrics["correct"][:keep].sum())
+        if self.world > 1:
+            summed = dist.all_sum(torch.tensor(
+                [totals["loss"], totals["accuracy"]], dtype=torch.float64))
+            totals = {"loss": float(summed[0]), "accuracy": float(summed[1])}
         return {k: v / max(len(labels), 1) for k, v in totals.items()}
 
     # -- checkpoint / resume ------------------------------------------------
 
     def save_checkpoint(self, directory: str, epoch: int) -> None:
+        """Write the state (rank 0 only: every rank holds the same)."""
+        if self.rank != 0:
+            return
         os.makedirs(directory, exist_ok=True)
         state = {"model": self.model.state_dict(),
                  "optimizer": self.optimizer.state_dict(), "step": self.step}
@@ -375,16 +438,61 @@ TINY_PRESET = NetworkConfig(
 )
 
 
+def _dp_ranks(args) -> int:
+    """The ranks ``--dp`` asks for on this host (0 = one per card of this
+    process; on the CPU, 1); more than the cards present is an error."""
+    if args.device == "cpu":
+        return max(args.dp, 1)
+    cards = len(mesh.process_cards())
+    if args.dp > cards:
+        quit_with_error(f"--dp {args.dp} exceeds the {cards} card(s) present")
+    return args.dp if args.dp > 0 else max(cards, 1)
+
+
+def _spawned_rank(local_rank: int, args, world: int, port: int) -> None:
+    """One rank of ``train --dp`` on this host (a spawned process)."""
+    os.environ.update(dist.rank_environ(local_rank, world, port))
+    dist.maybe_initialize(args.device)
+    ok = False
+    try:
+        train_from_args(args)
+        ok = True
+    finally:
+        dist.shutdown(ok)
+
+
+def _spawn_ranks(args, world: int) -> None:
+    """Run ``train`` as ``world`` ranks on this host and wait for them; if
+    one fails, the others are stopped and the run fails."""
+    import torch.multiprocessing as mp
+
+    port = dist.free_port()
+    log(f"  data-parallel: {world} ranks on this host (localhost:{port})")
+    try:
+        mp.spawn(_spawned_rank, args=(args, world, port), nprocs=world,
+                 join=True)
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+        quit_with_error(f"a data-parallel rank failed: {exc}")
+
+
 def train_from_args(args) -> None:
     section("Training the barcode classifier")
-    if args.dp > 1:
-        quit_with_error("--dp above 1 (data-parallel training) is not ported "
-                        "yet; it comes with the multi-GPU slice (ROADMAP, "
-                        "Queue 1, item 1). Drop --dp to train on one device")
+    rank, world = dist.group_rank_and_size()
+    if world == 1:
+        ranks = _dp_ranks(args)
+        if ranks > 1:
+            _spawn_ranks(args, ranks)
+            return
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:  # --device cuda without a card
         quit_with_error(str(exc))
+    if world > 1:
+        if device.type == "cuda":  # this rank's card
+            device = torch.device("cuda", mesh.process_cards()[0])
+        if args.batch_size % world:
+            quit_with_error(f"--batch_size {args.batch_size} does not divide "
+                            f"over {world} data-parallel ranks")
     signals, labels = data_io.load_training_set(args.training_data)
     log(f"  {len(labels)} samples of size {signals.shape[1]}")
     network = TINY_PRESET if args.size == "tiny" else NetworkConfig()
@@ -405,16 +513,18 @@ def train_from_args(args) -> None:
         aug_factor=args.aug_factor,
         seed=args.seed,
     )
-    trainer = Trainer(cfg, device)
-    log(f"  device: {trainer.device}")
+    trainer = Trainer(cfg, device, rank=rank, world=world)
+    log(f"  device: {trainer.device}"
+        + (f" (rank {rank} of {world})" if world > 1 else ""))
     best, best_variables = train_loop(
         trainer, signals, labels,
         epochs=cfg.epochs, batch_size=cfg.batch_size,
         test_fraction=cfg.test_fraction, aug_factor=cfg.aug_factor,
         seed=cfg.seed, checkpoint_dir=args.checkpoint_dir, resume=args.resume,
     )
-    save_model(
-        args.out, network, best_variables,
-        metadata={"best_val": best, "epochs": cfg.epochs},
-    )
-    log(f"  saved model to {args.out} (best val acc {best['accuracy']:.3f})")
+    if rank == 0:  # every rank holds the same weights; one writer
+        save_model(
+            args.out, network, best_variables,
+            metadata={"best_val": best, "epochs": cfg.epochs},
+        )
+        log(f"  saved model to {args.out} (best val acc {best['accuracy']:.3f})")

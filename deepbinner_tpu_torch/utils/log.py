@@ -32,6 +32,8 @@ def _json_mode() -> bool:
 
 def _host_prefix() -> str:
     rank = os.environ.get("DEEPBINNER_TPU_PROCESS_INDEX")
+    if rank is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        rank = os.environ.get("RANK")  # one rank of a torch.distributed job
     return f"[host {rank}] " if rank is not None else ""
 
 

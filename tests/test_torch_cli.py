@@ -223,25 +223,36 @@ def test_all_unreadable_fails_loud(models, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "data.tsv", "--out", "m.dbt", "--dp", "2"],
-    ["train", "data.tsv", "--out", "m.dbt", "--dp", "4", "--device", "cpu"],
-    ["train", "data.tsv", "--out", "m.dbt", "--dp", "8", "--size", "tiny"],
+    ["train", "data.tsv", "--out", "m.dbt", "--dp", "64"],
+    ["train", "data.tsv", "--out", "m.dbt", "--dp", "128", "--device", "cuda"],
+    ["train", "data.tsv", "--out", "m.dbt", "--dp", "256", "--size", "tiny"],
 ])
 def test_unported_subcommands_exit_nonzero(argv, capsys):
-    """Every subcommand is ported; what is left of one, data-parallel
-    training, exits non-zero with "not ported yet"."""
+    """Every subcommand is ported, data-parallel training included; ``--dp``
+    above the cards present exits non-zero, as the JAX CLI's mesh refuses
+    more devices than it has."""
     with pytest.raises(SystemExit) as exc:
         port_main(argv)
     assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported yet" not in err
+    assert f"--dp {argv[5]} exceeds the" in err and "card(s) present" in err
 
 
-def test_device_count_above_one_is_refused(datasets, models, capsys):
+def test_device_count_above_one_is_refused(datasets, models, capsys,
+                                           monkeypatch):
+    """``--device_count`` above the cards of this process is refused, as the
+    JAX CLI refuses more devices than the process can address (one card is
+    made to show here; on ``--device cpu`` every count is entries of the
+    CPU: tests/test_torch_cli_dp.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit) as exc:
         port_main(["classify", str(datasets["fast5"][0]), "-s", models[0],
-                   *GEOMETRY, "--device", "cpu", "--device_count", "2"])
+                   *GEOMETRY, "--device_count", "2"])
     assert exc.value.code != 0
-    capsys.readouterr()
+    err = capsys.readouterr().err
+    assert "--device_count 2" in err and "this process has 1 card(s)" in err
 
 
 def test_default_device_is_the_card(datasets, models, capsys):

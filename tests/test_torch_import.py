@@ -60,7 +60,8 @@ def test_port_imports_without_jax():
     assert result["foreign"] == []
     assert "deepbinner_tpu_torch.runner.mp_reader" in expected
     assert "deepbinner_tpu_torch.native.build" in expected
-    for name in ("cli.bin_reads", "cli.realtime", "utils.seqio", "native.zstd"):
+    for name in ("cli.bin_reads", "cli.realtime", "utils.seqio", "native.zstd",
+                 "parallel.mesh", "parallel.dist"):
         assert f"deepbinner_tpu_torch.{name}" in expected
     assert result["pod5_libraries"] == []  # neither zstandard nor flatbuffers
     assert result["native_loaded"] == []  # importing builds nothing

@@ -521,15 +521,21 @@ def test_cli_train_tiny_on_the_cpu_beats_chance(tiny_training_set, tmp_path):
         assert sorted(archive.namelist()) == ["config.json", "params.msgpack"]
 
 
-def test_cli_train_refuses_data_parallel(tmp_path, capsys):
+def test_cli_train_refuses_data_parallel(tmp_path, capsys, monkeypatch):
+    """``--dp`` above the cards present is refused before any rank starts
+    (one card is made to show here; data-parallel training itself:
+    tests/test_torch_dist_train.py)."""
     from deepbinner_tpu_torch.cli.main import main
 
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit) as exc:
         main(["train", str(tmp_path / "none.tsv"), "--out",
-              str(tmp_path / "m.dbt"), "--dp", "2", "--device", "cpu"])
+              str(tmp_path / "m.dbt"), "--dp", "2"])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert "--dp" in err and "Queue 1" in err
+    assert "--dp 2 exceeds the 1 card(s) present" in err
+    assert "data-parallel:" not in err  # no rank was started
+    assert not (tmp_path / "m.dbt").exists()
 
 
 def test_train_from_args_rejects_short_rows(tmp_path, capsys):
