@@ -46,37 +46,51 @@ one JSON line per phase:
    then ``cnn_ab``: the unit and fused CNN compositions timed in turns.
 7. ``split3``: the three-launch trunk on the first 512 of those reads:
    calls equal to the ``classify`` phase's, 1 K1 + 3 K2 launches per batch.
-8. ``tf32`` (fault F1): with ``torch.set_float32_matmul_precision("high")``
+8. ``keras``: the flagship start model expressed as a Keras 2.2 graph
+   (``scripts/demuxnet_as_keras.py``: Conv1D, BatchNormalization and
+   Activation per unit, the pools, Concatenate, GlobalAveragePooling1D,
+   Dense(softmax)) and parsed by ``models/keras_import.KerasGraphModel``,
+   run through a ``ClassifyProgram`` on the ``classify`` phase's 2048
+   reads: calls equal to the unit path's on every read, combined
+   probabilities within 1e-4, no launch of K1 or K2; the line carries the
+   graph's and the unit path's reads/s, ``device_batch_ms`` and
+   ``cnn_batch_ms``.
+9. ``hybrid``: ``kernel_path="hybrid"`` (K1 at the JAX table's three
+   units, cuDNN with TF32 off at the other twelve) on the same 2048
+   reads: calls equal to the unit path's, 3 K1 launches per batch, the
+   times beside the unit path's, and the units at which the
+   ``kernel_unit`` lines put K1 ahead of the cuDNN yardstick.
+10. ``tf32`` (fault F1): with ``torch.set_float32_matmul_precision("high")``
    one flagship batch's packed call table must be bit-identical to the one
    at ``"highest"``, and the process setting must read ``"high"`` after the
    call.
-9. ``pool_ring``: the reader pool's shared-memory ring, without files: a
+11. ``pool_ring``: the reader pool's shared-memory ring, without files: a
    ring of ``MIN_SHM_SLOTS`` slots registered as pinned memory, filled by
    ``build_batch_arrays(out=views)`` as a worker fills it, with the
    ``classify`` phase's 2048 reads, handed to ``classify_batches`` as
    6-tuples whose ``release`` overwrites the slot with 0x55 bytes.  The
    calls must equal the ``classify`` phase's, with one release and 15 K1
    launches per batch.
-10. ``native``: the native fast5 reader (where the probe found g++ and an
+12. ``native``: the native fast5 reader (where the probe found g++ and an
     HDF5 runtime; held against h5py where it imports), the native vbz
     unpacker (where g++ is found; held against the numpy path), and the
     zstd binding (a vbz round trip of the same three signals through the
     system libzstd); a part the machine cannot build prints ``ran: false``
     with the probe's reason.
-11. ``cli``: the port's CLI on pod5 files written here: ``simulate``
+13. ``cli``: the port's CLI on pod5 files written here: ``simulate``
     writes 2048 reads in 8 pod5 containers, ``classify`` (start and end
     models, batch 256) reads them once with reader threads and once with
     the default worker pool, whose two tables must be byte-identical with
     one row per read, and ``bin`` sorts ``reads.fastq`` by that table
     twice, byte-identically, each read into the bin its row names.
-12. ``realtime``: 256 single-read pod5 files, moved into the watched
+14. ``realtime``: 256 single-read pod5 files, moved into the watched
     directory in drops of 64 every 0.5 s while ``realtime`` (the flagship
     start model, the CLI defaults: 2 reader workers on the card, batch
     256) polls every 0.2 s; every file must end in the bin that
     ``classify`` gave its read, with 15 K1 launches per classified batch
     (and per warm-up batch), and the seconds from each file's arrival to
     its move are reported.
-13. ``train``: the training path on the card.  Training rows are built
+15. ``train``: the training path on the card.  Training rows are built
     here with the recipe of ``scripts/train_models.py`` (the port's
     ``simulate_read``, EXP-NBD103 read starts, genome 2000, as many none
     reads as reads per barcode, ``extract_training_samples`` at signal size
@@ -100,7 +114,7 @@ one JSON line per phase:
     step on cuDNN's default algorithms (time, and whether two runs repeat
     bit for bit), and the pinned step's top kernels by device time
     (``torch.profiler``).
-14. ``dp_classify`` (after ``pool_ring``): ``ClassifyProgram(devices=
+16. ``dp_classify`` (after ``pool_ring``): ``ClassifyProgram(devices=
     [cuda:0, cuda:0])``, each batch's rows split in two and both halves
     run on the one card, on the ``classify`` phase's 2048 reads: calls equal
     to that phase's, 15 K1 launches per half batch (30 per batch); the
@@ -110,14 +124,14 @@ one JSON line per phase:
     ``pool_ring`` check on this program, a slot released only once the
     uploads of both halves are done.  With more than one card, also the
     CLI's ``--device_count 2``.
-15. ``dist_classify`` (after ``cli``): two ranks of the port's `classify`
+17. ``dist_classify`` (after ``cli``): two ranks of the port's `classify`
     (``RANK``/``WORLD_SIZE`` as ``torchrun`` sets them; both on the one
     card, so the process group is gloo) over the ``cli`` phase's 8 pod5
     files, each with the default reader pool: rank 0's table must equal the
     single process's byte for byte, rank 1 prints none, each rank makes 15
     K1 launches per model per batch; then once more with ``--shard_dir``
     (manifests ``h0000`` and ``h0001``).
-16. ``dp_train`` (after ``train``): two ranks of `train` on the one card
+18. ``dp_train`` (after ``train``): two ranks of `train` on the one card
     (gloo on CUDA tensors) and one process, on the ``train`` phase's rows
     at the flagship width: the first 5 Trainer steps in float64, whose
     losses must agree within 1e-4 relative (the ranks' with each other bit
@@ -126,12 +140,12 @@ one JSON line per phase:
     f32 losses against one process's reported, rank 0's ``.dbt`` at the
     accuracy floor through K1; the median ms per step of each layout (the
     ranks' is gloo through one card, not NCCL's time).
-17. ``processes``: once the phases end, passed or failed, every process
+19. ``processes``: once the phases end, passed or failed, every process
     the run started that still runs is stopped: reader workers and any
     other child are killed, and multiprocessing's resource tracker is
     stopped and waited for.  A reader worker or other child still alive
     at that point fails the run (a pool was left open).  The ranks of
-    phases 15 and 16 run in sessions of their own, killed whole if one
+    phases 17 and 18 run in sessions of their own, killed whole if one
     fails.
 
 Any failure raises, so the script exits non-zero and prints no success
@@ -267,6 +281,7 @@ def phase_kernels(device, n: int = WINDOWS, line: str = "kernel_unit") -> dict:
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0, "generic_ms": 0.0}
     worst = 0.0
+    units = {}
     for scope, length, dilation, pool in unit_geometries(config):
         kernel, scale, bias = net.units[scope]
         taps, c_in, c_out = kernel.shape
@@ -333,6 +348,7 @@ def phase_kernels(device, n: int = WINDOWS, line: str = "kernel_unit") -> dict:
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
              bound_by="operations" if ops_ms >= bytes_ms else "bytes",
              gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        units[scope] = {"ms": ms, "library_ms": library_ms}
         totals["ms"] += ms
         totals["generic_ms"] += generic_ms
         totals["plain_ms"] += plain_ms
@@ -341,7 +357,7 @@ def phase_kernels(device, n: int = WINDOWS, line: str = "kernel_unit") -> dict:
         totals["bytes_bound_ms" if bytes_ms > ops_ms else "ops_bound_ms"] += bound_ms
         del x, x_ncl
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, **totals}
+    return {"max_abs_err": worst, **totals, "units": units}
 
 
 def segment_units(config, segment: str):
@@ -509,12 +525,13 @@ def _build_program(end_model=None, extra=(), start_model=START_MODEL):
     return program
 
 
-def _run_stream(program, reads):
+def _run_stream(program, reads, probs=None):
     """Classify ``reads`` through classify_stream.
 
     Returns (calls, stats, seconds, launches), where launches counts each
     kernel's launches over this stream alone (both counts are set to 0
-    just before it).
+    just before it).  ``probs``, a dict, takes each read's combined start
+    probabilities.
     """
     import torch
 
@@ -525,8 +542,12 @@ def _run_stream(program, reads):
     conv_kernel.LAUNCHES = 0
     trunk_kernel.LAUNCHES = 0
     start = time.perf_counter()
-    calls = {r.read_id: r.call for r in classify_stream(
-        program, iter(reads), batch_size=BATCH, stats=stats)}
+    calls = {}
+    for result in classify_stream(program, iter(reads), batch_size=BATCH,
+                                  stats=stats):
+        calls[result.read_id] = result.call
+        if probs is not None:
+            probs[result.read_id] = result.start_probs
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = {"conv1d_bn_relu": conv_kernel.LAUNCHES,
@@ -635,16 +656,38 @@ def _batch_profile(program, sig, lens) -> dict:
 
 
 def _classify_phase(phase: str, program, reads, truth, per_batch: dict,
-                    cnn) -> dict:
+                    cnn, unit: dict = None, prob_tol: float = None,
+                    **extra) -> dict:
     """Stream ``reads``, check the launches and the accuracy floor, and time
-    one batch on the host, on the device and in the CNN alone (``cnn``)."""
+    one batch on the host, on the device and in the CNN alone (``cnn``).
+
+    With ``unit`` (the ``classify`` phase's result) the calls must equal
+    the unit path's on every read, the combined probabilities must lie
+    within ``prob_tol`` of its (where given; else the distance is only
+    reported), and the line carries the unit path's times beside this
+    path's.  ``extra`` fields go on the line as they are."""
+    import numpy as np
     import torch
 
     from deepbinner_tpu_torch.runner.executor import build_batch
 
+    torch.cuda.reset_peak_memory_stats()
     program.warm_up(BATCH)
-    calls, stats, seconds, launches = _run_stream(program, reads)
+    probs = {}
+    calls, stats, seconds, launches = _run_stream(program, reads, probs)
     _check_launches(launches, stats.batches, per_batch, phase)
+    if unit is not None:
+        _same_calls(phase, calls, unit["calls"])
+        prob_diff = max(float(np.abs(p - unit["probs"][rid]).max())
+                        for rid, p in probs.items())
+        if prob_tol is not None and prob_diff > prob_tol:
+            raise AssertionError(f"{phase}: combined probabilities differ from "
+                                 f"the unit path's by {prob_diff} > {prob_tol}")
+        extra.update(same_calls_as_unit=len(calls),
+                     max_prob_diff_vs_unit=prob_diff,
+                     unit_reads_per_s=unit["reads_per_s"],
+                     unit_device_batch_ms=unit["device_batch_ms"],
+                     unit_cnn_batch_ms=unit["cnn_batch_ms"])
     exact, wrong = _score(calls, truth)
     floor_exact, floor_wrong = _accuracy_floor(program)
 
@@ -667,9 +710,10 @@ def _classify_phase(phase: str, program, reads, truth, per_batch: dict,
          floor_wrong=floor_wrong, device_batch_ms=batch_ms,
          cnn_batch_ms=cnn_ms, host_batch_ms=host_batch_ms,
          batch_profile=batch_profile,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return {"calls": calls, "launches": launches,
-            "reads_per_s": len(reads) / seconds, "device_batch_ms": batch_ms}
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
+    return {"calls": calls, "probs": probs, "launches": launches,
+            "batches": stats.batches, "reads_per_s": len(reads) / seconds,
+            "device_batch_ms": batch_ms, "cnn_batch_ms": cnn_ms}
 
 
 def phase_classify(reads, truth) -> dict:
@@ -741,6 +785,63 @@ def phase_split3(reads, unit_calls) -> None:
     emit("split3", reads=len(reads), batches=stats.batches, seconds=seconds,
          reads_per_s=len(reads) / seconds, launches=launches,
          same_calls_as_unit=len(calls))
+
+
+def _keras_graph(model_file: str):
+    """A `.dbt` model expressed as a Keras 2.2 graph
+    (``scripts/demuxnet_as_keras.py``), parsed by the port's importer."""
+    import importlib.util
+
+    from deepbinner_tpu_torch.models.checkpoint import load_model, to_flax_variables
+    from deepbinner_tpu_torch.models.keras_import import KerasGraphModel
+
+    spec = importlib.util.spec_from_file_location(
+        "demuxnet_as_keras", os.path.join(ROOT, "scripts", "demuxnet_as_keras.py"))
+    converter = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(converter)
+    model, config, _meta = load_model(model_file)
+    return KerasGraphModel(*converter.demuxnet_as_keras(
+        config, to_flax_variables(model)))
+
+
+def phase_keras(reads, truth, unit: dict) -> None:
+    """The flagship as an imported Keras graph (no kernel of the port): the
+    unit path's calls on every read, its probabilities within 1e-4."""
+    import torch
+
+    from deepbinner_tpu_torch.runner.pipeline import ClassifyProgram
+
+    graph = _keras_graph(START_MODEL)
+    cli = _build_program()  # the CLI defaults, on its device
+    program = ClassifyProgram(graph, cli.cfg, device=cli.device)
+    _classify_phase("keras", program, reads, truth,
+                    {"conv1d_bn_relu": 0, "trunk_megakernel": 0},
+                    lambda net, windows: torch.softmax(net(windows), dim=-1),
+                    unit=unit, prob_tol=TOL, layers=len(graph.layers))
+
+
+def phase_hybrid(reads, truth, unit: dict, kernels: dict) -> dict:
+    """kernel_path="hybrid": K1 at the JAX table's units, cuDNN elsewhere;
+    the unit path's calls, 3 K1 launches per batch.  The line also says at
+    which units the ``kernel_unit`` lines put K1 ahead of the library."""
+    import dataclasses
+
+    from deepbinner_tpu_torch.models.kernel_apply import (
+        HYBRID_KERNEL_UNITS,
+        apply_inference_kernels_hybrid,
+    )
+
+    program = _build_program()
+    program.cfg = dataclasses.replace(program.cfg, kernel_path="hybrid")
+    ahead = [scope for scope, t in kernels["units"].items()
+             if t["ms"] < t["library_ms"]]
+    return _classify_phase(
+        "hybrid", program, reads, truth,
+        {"conv1d_bn_relu": len(HYBRID_KERNEL_UNITS), "trunk_megakernel": 0},
+        apply_inference_kernels_hybrid, unit=unit,
+        table=sorted(HYBRID_KERNEL_UNITS), k1_ahead_of_library=ahead,
+        library_ahead_of_k1=[s for s in kernels["units"] if s not in ahead],
+        k1_ahead_at_every_unit=len(ahead) == len(kernels["units"]))
 
 
 def phase_dual() -> None:
@@ -2117,6 +2218,8 @@ def run_phases(device, smi: str) -> dict:
     phase_dual()
     fused = phase_classify_fused(reads, truth, unit["calls"])
     phase_split3(reads[:512], unit["calls"])
+    phase_keras(reads, truth, unit)
+    hybrid = phase_hybrid(reads, truth, unit, kernels)
     phase_tf32(reads)
     phase_pool_ring(reads, unit)
     phase_dp_classify(device, reads, unit)
@@ -2134,6 +2237,10 @@ def run_phases(device, smi: str) -> dict:
         "source": "deepbinner_tpu_torch/csrc/conv1d_bn_relu.cu",
         "replaces": KERNEL_REPLACES["conv1d_bn_relu"],
         "launches": unit["launches"]["conv1d_bn_relu"],
+        "launches_per_batch": {
+            "unit": unit["launches"]["conv1d_bn_relu"] / unit["batches"],
+            "hybrid": (hybrid["launches"]["conv1d_bn_relu"]
+                       / hybrid["batches"])},
         "max_abs_err": kernels["max_abs_err"],
         "ms": kernels["ms"],
         "plain_ms": kernels["plain_ms"],

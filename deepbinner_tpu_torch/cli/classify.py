@@ -3,7 +3,8 @@
 Counterpart of ``deepbinner_tpu/cli/classify.py``.  The TSV goes to stdout
 (read_ID, barcode_call, and the per-class probabilities with --verbose),
 progress to stderr, in the same format as the JAX CLI, so a plain table is
-byte-identical to the JAX package's for the same reads and weights.
+byte-identical to the JAX package's for the same reads and weights.  A
+model is a `.dbt` file or a Keras HDF5 file, as the JAX CLI takes them.
 
 Files are decoded and batches built in reader worker processes on the card
 (``--reader_processes``, the JAX CLI's default on an accelerator) or in
@@ -46,9 +47,12 @@ def _resolve_inputs(path: str) -> List[str]:
 def build_program(args):
     """Load model(s) and build the classify program from CLI args.
 
-    Returns (ClassifyProgram, NetworkConfig).
+    A model is a `.dbt` file or a Keras HDF5 file (``load_model`` tells them
+    apart); ``--pallas`` applies to `.dbt` models only.  Returns
+    (ClassifyProgram, the model's NetworkConfig or KerasModelConfig).
     """
     from deepbinner_tpu_torch.models.checkpoint import load_model
+    from deepbinner_tpu_torch.models.network import NetworkConfig
     from deepbinner_tpu_torch.ops.calling import CallingConfig
     from deepbinner_tpu_torch.ops.preprocess import PreprocessConfig
     from deepbinner_tpu_torch.runner.pipeline import ClassifyConfig, ClassifyProgram
@@ -98,10 +102,14 @@ def build_program(args):
         require_both=bool(getattr(args, "require_both", False)),
         combine=getattr(args, "combine", "neighbour"),
     )
+    use_pallas = bool(getattr(args, "pallas", False))
+    if use_pallas and not isinstance(net_cfg, NetworkConfig):
+        log("  --pallas only supports native .dbt models; using the graph "
+            "path for this imported Keras graph")
+        use_pallas = False
     cfg = ClassifyConfig(preprocess=pre, calling=calling,
                          dual_model=end_model is not None,
-                         kernel_path="fused" if getattr(args, "pallas", False)
-                         else "unit")
+                         kernel_path="fused" if use_pallas else "unit")
     program = ClassifyProgram(model, cfg, end_model=end_model,
                               devices=_data_parallel_devices(args, device))
     log(f"  device: {program.device}")

@@ -13,7 +13,9 @@ bin, nil, bools, ints, floats and ext type 1, flax's ndarray
 as ``msgpack.packb`` does (:func:`msgpack_dumps`).  :func:`from_flax_variables`
 maps the numpy tree onto :class:`DemuxNet`'s parameters, and
 :func:`to_flax_variables` maps them back; the tests use them to give both
-packages the same weights.  Keras-HDF5 import is not ported yet.
+packages the same weights.  :func:`load_model` hands a Keras HDF5 file
+(sniffed by its magic bytes) to
+:func:`~deepbinner_tpu_torch.models.keras_import.load_keras_model`.
 """
 
 from __future__ import annotations
@@ -332,18 +334,20 @@ def save_model(
     os.replace(tmp, path)
 
 
-def load_model(
-    path: str | os.PathLike,
-) -> Tuple[DemuxNet, NetworkConfig, Dict[str, Any]]:
-    """Load a `.dbt` model file → (model on the CPU, config, metadata)."""
+def load_model(path: str | os.PathLike) -> Tuple[Any, Any, Dict[str, Any]]:
+    """Load a model file → (model on the CPU, config, metadata).
+
+    A `.dbt` archive gives a :class:`DemuxNet` and its
+    :class:`NetworkConfig`; a Keras HDF5 file a
+    :class:`~deepbinner_tpu_torch.models.keras_import.KerasGraphModel` and
+    its ``KerasModelConfig``.
+    """
     path = os.fspath(path)
     if is_keras_hdf5(path):
-        raise NotImplementedError(
-            f"{path}: Keras HDF5 import is not ported yet; convert it to "
-            f".dbt with the JAX package"
-        )
+        from deepbinner_tpu_torch.models import keras_import
+
+        return keras_import.load_keras_model(path)
     with zipfile.ZipFile(path, "r") as archive:
         config, metadata = _config_from_json(archive.read("config.json").decode())
         raw = archive.read("params.msgpack")
     return model_from_flax_variables(config, msgpack_loads(raw)), config, metadata
-

@@ -15,6 +15,12 @@ Counterpart of ``deepbinner_tpu/models/pallas_apply.py``:
   the trunk megakernel (:func:`~deepbinner_tpu_torch.ops.trunk_kernel.trunk_segment`),
   then the dense layer and the softmax.  The megakernel picks its own
   tiling, so the Pallas versions' batch-tile arguments have no counterpart.
+- :func:`apply_inference_kernels_hybrid` (``apply_inference_pallas_hybrid``):
+  the unit composition with the unit kernel only at the scopes of a table
+  (default :data:`HYBRID_KERNEL_UNITS`, the JAX package's
+  ``HYBRID_PALLAS_UNITS``) and the library's conv everywhere else.  The
+  kernel plans its own tiles (:func:`~deepbinner_tpu_torch.ops.conv_kernel.plan_unit`),
+  so the table's Pallas tile arguments have no counterpart.
 
 The BatchNorm affine is folded and the trunk's weights are packed once,
 when the network is put on its device (:func:`fold_network`), not on every
@@ -24,9 +30,10 @@ call.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Collection, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deepbinner_tpu_torch.models.network import (
     DemuxNet,
@@ -34,7 +41,10 @@ from deepbinner_tpu_torch.models.network import (
     pool3_same,
     unit_scopes,
 )
-from deepbinner_tpu_torch.ops.conv_kernel import fused_conv1d_bn_relu
+from deepbinner_tpu_torch.ops.conv_kernel import (
+    conv1d_bn_relu_reference,
+    fused_conv1d_bn_relu,
+)
 from deepbinner_tpu_torch.ops.trunk_kernel import (
     PackedTrunk,
     pack_trunk,
@@ -82,29 +92,76 @@ def _classify(net: FoldedNet, pooled: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits, dim=-1)
 
 
-def apply_inference_kernels(net: FoldedNet, windows: torch.Tensor) -> torch.Tensor:
-    """Softmax probabilities for ``(N, L)`` or ``(N, L, 1)`` signal windows."""
-    x = _as_windows(windows)
-
-    def unit(scope: str, x: torch.Tensor, dilation: int = 1,
-             pool: bool = False) -> torch.Tensor:
-        return fused_conv1d_bn_relu(x, *net.units[scope], dilation=dilation,
-                                    pool=pool)
-
-    x = unit("stem1", x)
-    x = unit("stem2", x, pool=True)
+def _demuxnet(net: FoldedNet, windows: torch.Tensor, unit) -> torch.Tensor:
+    """DemuxNet's inference graph with each ConvBNReLU unit computed by
+    ``unit(scope, x, dilation, pool)`` on ``(N, L, C)``."""
+    x = unit("stem1", _as_windows(windows), 1, False)
+    x = unit("stem2", x, 1, True)
     for i in range(len(net.config.block_features)):
-        x = unit(f"block{i}_conv1", x)
-        x = unit(f"block{i}_conv2", x, pool=True)
+        x = unit(f"block{i}_conv1", x, 1, False)
+        x = unit(f"block{i}_conv2", x, 1, True)
     for i in range(len(net.config.inception_features)):
         scope = f"inception{i}"
         x = torch.cat([
-            unit(f"{scope}/branch1x1", x, pool=True),
-            unit(f"{scope}/branch3", x, pool=True),
-            unit(f"{scope}/branch_dilated", x, dilation=2 ** (i + 1), pool=True),
-            unit(f"{scope}/branch_pool", pool3_same(x).contiguous(), pool=True),
+            unit(f"{scope}/branch1x1", x, 1, True),
+            unit(f"{scope}/branch3", x, 1, True),
+            unit(f"{scope}/branch_dilated", x, 2 ** (i + 1), True),
+            unit(f"{scope}/branch_pool", pool3_same(x).contiguous(), 1, True),
         ], dim=-1)
-    return _classify(net, unit("head_conv", x).mean(dim=1))  # GAP
+    return _classify(net, unit("head_conv", x, 1, False).mean(dim=1))  # GAP
+
+
+def apply_inference_kernels(net: FoldedNet, windows: torch.Tensor) -> torch.Tensor:
+    """Softmax probabilities for ``(N, L)`` or ``(N, L, 1)`` signal windows."""
+
+    def unit(scope, x, dilation, pool):
+        return fused_conv1d_bn_relu(x, *net.units[scope], dilation=dilation,
+                                    pool=pool)
+
+    return _demuxnet(net, windows, unit)
+
+
+# The JAX package's HYBRID_PALLAS_UNITS: the units where a TPU sweep
+# measured its unit kernel ahead of XLA's conv.  A scope matches by its
+# full name or its last component.
+HYBRID_KERNEL_UNITS = frozenset({"block0_conv2", "block1_conv2", "head_conv"})
+
+
+def _library_unit(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor, dilation: int, pool: bool) -> torch.Tensor:
+    """One unit as library calls on the card: ``F.conv1d`` on ``(N, C, L)``,
+    the folded affine, ReLU and the stride-2 max pool (the classify program
+    runs it with TF32 off)."""
+    taps = kernel.shape[0]
+    y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0),
+                 padding=(taps - 1) // 2 * dilation, dilation=dilation)
+    y = torch.relu(y * scale[:, None] + bias[:, None])
+    if pool:
+        y = F.max_pool1d(y, 2)
+    return y.transpose(1, 2).contiguous()
+
+
+def apply_inference_kernels_hybrid(net: FoldedNet, windows: torch.Tensor,
+                                   units: Collection[str] = HYBRID_KERNEL_UNITS
+                                   ) -> torch.Tensor:
+    """Softmax probabilities with the unit kernel only at ``units``.
+
+    The units in the table launch the kernel; on the card every other unit
+    runs :func:`_library_unit` (the JAX version's "XLA elsewhere").  On the
+    CPU every unit runs the plain version, as the kernel's wrapper does.
+    """
+
+    def unit(scope, x, dilation, pool):
+        weights = net.units[scope]
+        if scope in units or scope.split("/")[-1] in units:
+            return fused_conv1d_bn_relu(x, *weights, dilation=dilation,
+                                        pool=pool)
+        if x.device.type == "cpu":
+            return conv1d_bn_relu_reference(x, *weights, dilation=dilation,
+                                            pool=pool)
+        return _library_unit(x, *weights, dilation=dilation, pool=pool)
+
+    return _demuxnet(net, windows, unit)
 
 
 def _trunk(net: FoldedNet, windows: torch.Tensor, segments) -> torch.Tensor:

@@ -11,7 +11,10 @@ gathered in row order on the first.  On a CUDA device the CNN
 runs one of the kernel compositions of
 :mod:`~deepbinner_tpu_torch.models.kernel_apply`, chosen by
 ``ClassifyConfig.kernel_path``; on the CPU the same composition runs each
-kernel's plain version.
+kernel's plain version.  A model imported from Keras HDF5
+(:class:`~deepbinner_tpu_torch.models.keras_import.KerasGraphModel`) runs
+as its own graph on every device, with no kernel of the port (the JAX
+program's ``model.apply`` branch); it takes ``kernel_path="unit"`` only.
 
 The reference computes in f32, so every call of the program runs with TF32
 off for cuBLAS and cuDNN (:func:`full_f32`), whatever the host program has
@@ -21,8 +24,9 @@ set, and gives the caller's settings back afterwards.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
-from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,9 +36,11 @@ from deepbinner_tpu_torch.models.kernel_apply import (
     FoldedNet,
     apply_inference_kernels,
     apply_inference_kernels_fused,
+    apply_inference_kernels_hybrid,
     apply_inference_kernels_split3,
     fold_network,
 )
+from deepbinner_tpu_torch.models.keras_import import KerasGraphModel
 from deepbinner_tpu_torch.models.network import DemuxNet
 from deepbinner_tpu_torch.ops.calling import (
     CallingConfig,
@@ -70,7 +76,9 @@ class ClassifyConfig:
     #   "fused"  stem1, then the whole trunk in one megakernel launch (JAX:
     #            use_pallas with pallas_fused, what `classify --pallas` runs);
     #   "split3" stem1, then three megakernel launches (JAX: pallas_path=
-    #            "split3").
+    #            "split3");
+    #   "hybrid" the unit kernel at the units of HYBRID_KERNEL_UNITS, the
+    #            library's conv at the others (JAX: pallas_path="hybrid").
     kernel_path: str = "unit"
 
     def __post_init__(self) -> None:
@@ -83,24 +91,33 @@ KERNEL_PATHS = {
     "unit": apply_inference_kernels,
     "fused": apply_inference_kernels_fused,
     "split3": apply_inference_kernels_split3,
+    "hybrid": apply_inference_kernels_hybrid,
 }
 
+# What a program holds for one model on one device: DemuxNet folded for the
+# kernels, or an imported Keras graph on that device.
+Net = Union[FoldedNet, KerasGraphModel]
+Model = Union[DemuxNet, KerasGraphModel]
 
-def _one_end_probs(net: FoldedNet, cfg: ClassifyConfig, signal: torch.Tensor,
+
+def _one_end_probs(net: Net, cfg: ClassifyConfig, signal: torch.Tensor,
                    lengths: torch.Tensor) -> torch.Tensor:
     """(B, buffer) signal → (B, C) combined probabilities for one read end."""
     windows, mask = preprocess_batch(signal, lengths, cfg.preprocess)
     batch, num_windows, width = windows.shape
-    apply = KERNEL_PATHS[cfg.kernel_path]
-    probs = apply(net, windows.reshape(batch * num_windows, width))
+    flat = windows.reshape(batch * num_windows, width)
+    if isinstance(net, FoldedNet):
+        probs = KERNEL_PATHS[cfg.kernel_path](net, flat)
+    else:
+        probs = torch.softmax(net(flat), dim=-1)
     probs = probs.reshape(batch, num_windows, -1)
     return combine_window_probs(probs, mask, rule=cfg.calling.combine)
 
 
 def classify_step(
     cfg: ClassifyConfig,
-    start_net: FoldedNet,
-    end_net: Optional[FoldedNet],
+    start_net: Net,
+    end_net: Optional[Net],
     start_signal: torch.Tensor,
     start_lengths: torch.Tensor,
     end_signal: Optional[torch.Tensor] = None,
@@ -192,21 +209,37 @@ def _on(device: torch.device):
     return contextlib.nullcontext()
 
 
+def _place(model: Model, kernel_path: str, device: torch.device) -> Net:
+    """``model`` ready to run on ``device``: DemuxNet folded for the kernels,
+    a Keras graph copied onto the device (each device its own copy)."""
+    if isinstance(model, DemuxNet):
+        return fold_network(model, device)
+    if not isinstance(model, KerasGraphModel):
+        raise TypeError(f"expected a DemuxNet or a KerasGraphModel, got "
+                        f"{type(model).__name__}")
+    if kernel_path != "unit":
+        raise ValueError(f"kernel_path {kernel_path!r} runs DemuxNet on the "
+                         f"port's kernels; an imported Keras graph runs as "
+                         f"its own graph (kernel_path='unit')")
+    return copy.deepcopy(model).to(device).eval()
+
+
 class ClassifyProgram:
     """A classify step bound to its model(s), config and device(s).
 
-    One instance per run.  The weights are folded and put on each device
-    when it is built; each call uploads one batch, runs the step and
-    returns the result on the (first) device (``device=None`` means the
-    card).  ``devices`` (a list; one entry may repeat) makes it data
-    parallel: each call splits the batch's rows over them in order.
+    One instance per run.  The weights are folded (DemuxNet) or copied (a
+    Keras graph; each end brings its own) and put on each device when it is
+    built; each call uploads one batch, runs the step and returns the
+    result on the (first) device (``device=None`` means the card).
+    ``devices`` (a list; one entry may repeat) makes it data parallel: each
+    call splits the batch's rows over them in order.
     """
 
     def __init__(
         self,
-        model: DemuxNet,
+        model: Model,
         cfg: ClassifyConfig,
-        end_model: Optional[DemuxNet] = None,
+        end_model: Optional[Model] = None,
         device=None,
         devices: Optional[Sequence] = None,
     ) -> None:
@@ -221,8 +254,8 @@ class ClassifyProgram:
         nets = {}
         for dev in self.devices:
             if dev not in nets:
-                nets[dev] = (fold_network(model, dev),
-                             fold_network(end_model, dev)
+                nets[dev] = (_place(model, cfg.kernel_path, dev),
+                             _place(end_model, cfg.kernel_path, dev)
                              if end_model is not None else None)
         self.nets = [nets[dev] for dev in self.devices]
         self.start_net, self.end_net = self.nets[0]

@@ -10,6 +10,7 @@ that has only PyTorch:
 """
 
 import functools
+import importlib.util
 import multiprocessing as mp
 import os
 
@@ -17,8 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from deepbinner_tpu_torch.models.checkpoint import load_model
-from deepbinner_tpu_torch.models.kernel_apply import fold_network
+from deepbinner_tpu_torch.models.checkpoint import load_model, to_flax_variables
+from deepbinner_tpu_torch.models.keras_import import KerasGraphModel
+from deepbinner_tpu_torch.models.kernel_apply import (
+    HYBRID_KERNEL_UNITS,
+    apply_inference_kernels,
+    apply_inference_kernels_hybrid,
+    fold_network,
+)
 from deepbinner_tpu_torch.models.network import NetworkConfig
 from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
 from deepbinner_tpu_torch.ops.calling import CallingConfig
@@ -45,7 +52,11 @@ from deepbinner_tpu_torch.runner.executor import (
 )
 from deepbinner_tpu_torch.runner.hostbatch import build_batch_arrays
 from deepbinner_tpu_torch.runner.mp_reader import _ShmRing
-from deepbinner_tpu_torch.runner.pipeline import ClassifyConfig, ClassifyProgram
+from deepbinner_tpu_torch.runner.pipeline import (
+    ClassifyConfig,
+    ClassifyProgram,
+    full_f32,
+)
 from deepbinner_tpu_torch.utils import simulate
 
 pytestmark = pytest.mark.cuda
@@ -308,6 +319,55 @@ def test_program_on_the_card_matches_the_cpu(cuda_device):
             program, iter(reads), batch_size=8)}
         launches = conv_kernel.LAUNCHES - before
         assert launches == (0 if device == "cpu" else 9 * 2)  # 9 units, 2 batches
+    for read_id, want in results["cpu"].items():
+        got = results["cuda"][read_id]
+        assert got.call == want.call, read_id
+        np.testing.assert_allclose(got.start_probs, want.start_probs, atol=1e-4)
+
+
+def test_hybrid_matches_unit_at_the_flagship_geometry(cuda_device):
+    """kernel_path="hybrid" on the card: K1 at the three units of the table,
+    cuDNN (TF32 off) at the other twelve, within 1e-4 of the unit path."""
+    model, _cfg, _meta = load_model(START_MODEL)
+    net = fold_network(model, cuda_device)
+    windows = torch.tensor(np.random.default_rng(12).normal(size=(352, 1024)),
+                           dtype=torch.float32, device=cuda_device)
+    with full_f32(), torch.inference_mode():
+        want = apply_inference_kernels(net, windows)
+        before = conv_kernel.LAUNCHES
+        got = apply_inference_kernels_hybrid(net, windows)
+        assert conv_kernel.LAUNCHES - before == len(HYBRID_KERNEL_UNITS)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def _load_demuxnet_as_keras():
+    spec = importlib.util.spec_from_file_location(
+        "demuxnet_as_keras", os.path.join(os.path.dirname(__file__), "..",
+                                          "scripts", "demuxnet_as_keras.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.demuxnet_as_keras
+
+
+def test_keras_graph_on_the_card_matches_the_cpu(cuda_device):
+    """The flagship as a Keras graph, classified on the card and on the
+    CPU: the same calls, combined probabilities within 1e-4, and no
+    launch of K1 or K2."""
+    model, net_cfg, _meta = load_model(TINY_MODEL)
+    graph = KerasGraphModel(*_load_demuxnet_as_keras()(
+        net_cfg, to_flax_variables(model)))
+    pre = PreprocessConfig(scan_size=768, window=net_cfg.input_length,
+                           stride=net_cfg.input_length // 2, trim_scan=512,
+                           host_trim=True, wire="int8")
+    reads = _tiny_program_reads()
+    results = {}
+    for device in ("cpu", "cuda"):
+        program = ClassifyProgram(graph, ClassifyConfig(pre, CallingConfig()),
+                                  device=device)
+        before = (conv_kernel.LAUNCHES, trunk_kernel.LAUNCHES)
+        results[device] = {r.read_id: r for r in classify_stream(
+            program, iter(reads), batch_size=8)}
+        assert (conv_kernel.LAUNCHES, trunk_kernel.LAUNCHES) == before
     for read_id, want in results["cpu"].items():
         got = results["cuda"][read_id]
         assert got.call == want.call, read_id

@@ -1,4 +1,5 @@
-"""The port imports with jax blocked and loads nothing of the JAX package."""
+"""The port imports with jax, flax, h5py and keras blocked and loads
+nothing of the JAX package."""
 
 import json
 import pkgutil
@@ -12,7 +13,8 @@ import importlib, json, pkgutil, sys
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "h5py",
+                                  "keras", "tensorflow"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -33,6 +35,7 @@ print(json.dumps({
     "imported": names,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                             "h5py", "keras", "tensorflow",
                                              "deepbinner_tpu")),
     "cuda": torch.cuda.is_available(),
     "resolve_raised": raised,
@@ -61,7 +64,7 @@ def test_port_imports_without_jax():
     assert "deepbinner_tpu_torch.runner.mp_reader" in expected
     assert "deepbinner_tpu_torch.native.build" in expected
     for name in ("cli.bin_reads", "cli.realtime", "utils.seqio", "native.zstd",
-                 "parallel.mesh", "parallel.dist"):
+                 "parallel.mesh", "parallel.dist", "models.keras_import"):
         assert f"deepbinner_tpu_torch.{name}" in expected
     assert result["pod5_libraries"] == []  # neither zstandard nor flatbuffers
     assert result["native_loaded"] == []  # importing builds nothing

@@ -102,7 +102,7 @@ def test_megakernel_paths_match_jax_pallas(weights, reads, kernel_path, dual):
 
 def test_unknown_kernel_path_is_refused():
     with pytest.raises(ValueError):
-        ClassifyConfig(PreprocessConfig(**PRE), kernel_path="hybrid")
+        ClassifyConfig(PreprocessConfig(**PRE), kernel_path="megakernel")
 
 
 def _assert_same_results(jax_program, program, reads):
