@@ -124,14 +124,33 @@ one JSON line per phase:
     ``pool_ring`` check on this program, a slot released only once the
     uploads of both halves are done.  With more than one card, also the
     CLI's ``--device_count 2``.
-17. ``dist_classify`` (after ``cli``): two ranks of the port's `classify`
+17. ``tp_classify`` (after ``dp_classify``): the ``'model'`` axis,
+    ``ClassifyProgram(devices=[cuda:0] * 4, model=2)``: a data 2 × model 2
+    grid on the one card, each unit's output features split in two column
+    shards, K1 on each, gathered in rank order, on the ``classify`` phase's
+    2048 reads: calls equal to that phase's on every read, combined
+    probabilities within 1e-5, 60 K1 launches per batch, and the gathers
+    and peer copies of one batch; then ``kernel_unit_tp`` lines and a
+    ``tp_units`` total at model 2 and 4: K1 on each flagship unit's column
+    shards at a data group's 1408 windows against its plain version
+    (atol and rtol 1e-4) and a rerun (bit-identical), the rank-order
+    gather against the unsharded K1 (largest difference; bit-identical or
+    not), the shards' times beside the whole unit's and the bound.
+18. ``dryrun``: ``deepbinner_tpu_torch/entry.py`` on the card: ``entry()``
+    (the flagship classify step on 32 all-zero reads: calls of shape (32,),
+    15 K1 launches, its time), then ``dryrun_multichip(4)`` on
+    [cuda:0] * 4: one train step and an eval of the tiny network over two
+    gloo ranks on the card (finite loss), then the tiny model's
+    data-parallel and model-axis calls on 16 simulated reads, equal, over
+    at least 3 classes.
+19. ``dist_classify`` (after ``cli``): two ranks of the port's `classify`
     (``RANK``/``WORLD_SIZE`` as ``torchrun`` sets them; both on the one
     card, so the process group is gloo) over the ``cli`` phase's 8 pod5
     files, each with the default reader pool: rank 0's table must equal the
     single process's byte for byte, rank 1 prints none, each rank makes 15
     K1 launches per model per batch; then once more with ``--shard_dir``
     (manifests ``h0000`` and ``h0001``).
-18. ``dp_train`` (after ``train``): two ranks of `train` on the one card
+20. ``dp_train`` (after ``train``): two ranks of `train` on the one card
     (gloo on CUDA tensors) and one process, on the ``train`` phase's rows
     at the flagship width: the first 5 Trainer steps in float64, whose
     losses must agree within 1e-4 relative (the ranks' with each other bit
@@ -140,13 +159,14 @@ one JSON line per phase:
     f32 losses against one process's reported, rank 0's ``.dbt`` at the
     accuracy floor through K1; the median ms per step of each layout (the
     ranks' is gloo through one card, not NCCL's time).
-19. ``processes``: once the phases end, passed or failed, every process
+21. ``processes``: once the phases end, passed or failed, every process
     the run started that still runs is stopped: reader workers and any
     other child are killed, and multiprocessing's resource tracker is
     stopped and waited for.  A reader worker or other child still alive
     at that point fails the run (a pool was left open).  The ranks of
-    phases 17 and 18 run in sessions of their own, killed whole if one
-    fails.
+    phases 19 and 20 run in sessions of their own, killed whole if one
+    fails; the dry run's training ranks (phase 18) are spawned and joined
+    by ``torch.multiprocessing``.
 
 Any failure raises, so the script exits non-zero and prints no success
 line.  It needs a CUDA card and the repository's sources: without either it
@@ -2011,6 +2031,176 @@ def phase_dp_classify(device, reads, unit: dict) -> None:
          multi_card=multi_card)
 
 
+TP_MODEL = 2     # the 'model' axis of tp_classify, as the dry run builds it
+
+
+def _tp_units(device, model: int, n: int = WINDOWS // 2) -> dict:
+    """K1 on each flagship unit's column shards at ``model`` ranks, on the
+    ``n`` windows of one data group: each shard against its plain version
+    (atol and rtol 1e-4) and a rerun (bit-identical), the rank-order gather
+    against the unsharded K1 (the largest difference, and whether it is
+    bit-identical), the shards' times beside the whole unit's and the
+    shards' bound (one ``kernel_unit_tp`` line per unit)."""
+    import torch
+
+    from deepbinner_tpu_torch.models.checkpoint import load_model
+    from deepbinner_tpu_torch.models.kernel_apply import fold_network, shard_network
+    from deepbinner_tpu_torch.ops.conv_kernel import (
+        conv1d_bn_relu_reference,
+        fused_conv1d_bn_relu,
+        plan_unit,
+    )
+
+    dbt_model, config, _meta = load_model(START_MODEL)
+    net = fold_network(dbt_model, device)
+    shards = [shard_network(net, rank, model) for rank in range(model)]
+    gen = torch.Generator(device=device).manual_seed(1)
+    totals = {"ms": 0.0, "whole_ms": 0.0, "bound_ms": 0.0}
+    worst_err, worst_diff, identical = 0.0, 0.0, True
+    for scope, length, dilation, pool in unit_geometries(config):
+        c_in = net.units[scope][0].shape[1]
+        x = torch.randn((n, length, c_in), generator=gen, device=device)
+        whole = fused_conv1d_bn_relu(x, *net.units[scope], dilation=dilation,
+                                     pool=pool)
+        parts, err = [], 0.0
+        for shard in shards:
+            weights = shard.units[scope]
+            got = fused_conv1d_bn_relu(x, *weights, dilation=dilation, pool=pool)
+            again = fused_conv1d_bn_relu(x, *weights, dilation=dilation,
+                                         pool=pool)
+            want = conv1d_bn_relu_reference(x, *weights, dilation=dilation,
+                                            pool=pool)
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, atol=TOL, rtol=TOL):
+                raise AssertionError(f"tp {scope}: K1 on a {weights[0].shape[2]}"
+                                     f"-column shard disagrees with the plain "
+                                     f"version")
+            if not torch.equal(got, again):
+                raise AssertionError(f"tp {scope}: K1 on a shard is not "
+                                     f"bit-identical from run to run")
+            err = max(err, (got - want).abs().max().item())
+            parts.append(got)
+        gathered = torch.cat(parts, dim=-1)
+        diff = (gathered - whole).abs().max().item()
+        same = bool(torch.equal(gathered, whole))
+        if not torch.allclose(gathered, whole, atol=TOL, rtol=TOL):
+            raise AssertionError(f"tp {scope}: the gathered shards differ from "
+                                 f"the unsharded K1 by {diff}")
+
+        def run_shards():
+            for shard in shards:
+                fused_conv1d_bn_relu(x, *shard.units[scope], dilation=dilation,
+                                     pool=pool)
+
+        ms = time_ms(run_shards, 20)
+        whole_ms = time_ms(lambda: fused_conv1d_bn_relu(
+            x, *net.units[scope], dilation=dilation, pool=pool), 20)
+        taps, _c, c_out = net.units[scope][0].shape
+        width = shards[0].units[scope][0].shape[2]
+        plan = plan_unit(c_in, width, taps, dilation, length)
+        out_len = length // 2 if pool else length
+        # The gathered unit's bound: its input read once, its output written
+        # once (each shard launch reads the whole input again).
+        nbytes = 4 * (n * length * c_in + n * out_len * c_out
+                      + taps * c_in * c_out + 2 * c_out)
+        flops = 2 * n * length * taps * c_in * c_out
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
+        emit("kernel_unit_tp", unit=scope, model=model, n=n, length=length,
+             c_in=c_in, c_out=c_out, shard_c_out=width, co_tile=plan.co_tile,
+             row_tile=plan.row_tile, path=plan.path, max_abs_err=err,
+             gathered_max_abs_diff_vs_whole=diff, gathered_bit_identical=same,
+             ms=ms, whole_ms=whole_ms, bound_ms=bound_ms)
+        worst_err, worst_diff = max(worst_err, err), max(worst_diff, diff)
+        identical = identical and same
+        totals["ms"] += ms
+        totals["whole_ms"] += whole_ms
+        totals["bound_ms"] += bound_ms
+        del x, whole, parts, gathered
+    torch.cuda.empty_cache()
+    return {"model": model, "max_abs_err": worst_err,
+            "gathered_max_abs_diff_vs_whole": worst_diff,
+            "gathered_bit_identical": identical, **totals}
+
+
+def phase_tp_classify(device, reads, truth, unit: dict) -> dict:
+    """ClassifyProgram over [cuda:0] * 4 with model=2: a data 2 × model 2
+    grid on the one card, every unit on column shards (the unit path only),
+    on the ``classify`` phase's 2048 reads: calls equal to that phase's,
+    combined probabilities within 1e-5, 60 K1 launches per batch; the
+    gathers and peer copies of one batch; K1 at the shards' widths."""
+    import torch
+
+    from deepbinner_tpu_torch.models import kernel_apply
+    from deepbinner_tpu_torch.models.checkpoint import load_model
+    from deepbinner_tpu_torch.parallel.mesh import split_rows
+    from deepbinner_tpu_torch.runner.pipeline import ClassifyProgram
+
+    model = load_model(START_MODEL)[0]
+    cfg = _build_program().cfg
+    program = ClassifyProgram(model, cfg, devices=[device] * 4, model=TP_MODEL)
+    grid = [[str(d) for d in row] for row in program.grid]
+    program.warm_up(BATCH)
+    _ids, sig, lens, _e, _el = _build_batch(reads, cfg)
+    kernel_apply.GATHERS = kernel_apply.PEER_COPIES = 0
+    program.call_packed(sig, lens).cpu()
+    gathers, copies = kernel_apply.GATHERS, kernel_apply.PEER_COPIES
+
+    def cnn(_net, windows):
+        rows = split_rows(windows.shape[0], len(program.nets))
+        return [kernel_apply.apply_inference_kernels_tp(nets[0], windows[lo:hi])
+                for (lo, hi), nets in zip(rows, program.nets)]
+
+    result = _classify_phase(
+        "tp_classify", program, reads, truth,
+        {"conv1d_bn_relu": 4 * 15, "trunk_megakernel": 0}, cnn, unit=unit,
+        prob_tol=1e-5, grid=grid, gathers_per_batch=gathers,
+        peer_copies_per_batch=copies)
+    for model_axis in (TP_MODEL, 4):
+        shard = _tp_units(device, model_axis)
+        emit("tp_units", **shard)
+    return result
+
+
+def phase_dryrun(device) -> dict:
+    """The port's top-level entry points on the card: ``entry()`` (the flagship
+    classify step on 32 all-zero reads; 15 K1 launches, calls of shape
+    (32,)), then ``dryrun_multichip(4)`` on [cuda:0] * 4 (two training
+    ranks over gloo on the one card, then the tiny model's data-parallel
+    and model-axis calls, which must be equal and spread)."""
+    import torch
+
+    from deepbinner_tpu_torch import entry as port_entry
+    from deepbinner_tpu_torch.ops import conv_kernel
+
+    fn, example = port_entry.entry(device)
+    conv_kernel.LAUNCHES = 0
+    out = fn(*example)
+    torch.cuda.synchronize()
+    entry_launches = conv_kernel.LAUNCHES
+    if tuple(out.calls.shape) != (port_entry.ENTRY_BATCH,):
+        raise AssertionError(f"dryrun: entry() calls of shape "
+                             f"{tuple(out.calls.shape)}")
+    if not bool(torch.isfinite(out.start_probs).all()):
+        raise AssertionError("dryrun: entry() gave non-finite probabilities")
+    if entry_launches != 15:
+        raise AssertionError(f"dryrun: entry() made {entry_launches} K1 "
+                             f"launches, expected 15")
+    entry_ms = time_ms(lambda: fn(*example), 5)
+    start = time.perf_counter()
+    conv_kernel.LAUNCHES = 0
+    summary = port_entry.dryrun_multichip(4, device=device.type)
+    torch.cuda.synchronize()
+    launches = conv_kernel.LAUNCHES
+    if launches == 0:
+        raise AssertionError("dryrun: the classify check launched no K1")
+    emit("dryrun", entry_calls_shape=list(out.calls.shape),
+         entry_launches=entry_launches, entry_ms=entry_ms,
+         dryrun_seconds=time.perf_counter() - start,
+         dryrun_k1_launches=launches,
+         **{k: v for k, v in summary.items() if k not in ("calls", "truth")})
+    return summary
+
+
 def _build_batch(reads, cfg):
     from deepbinner_tpu_torch.runner.executor import build_batch
 
@@ -2223,6 +2413,8 @@ def run_phases(device, smi: str) -> dict:
     phase_tf32(reads)
     phase_pool_ring(reads, unit)
     phase_dp_classify(device, reads, unit)
+    tp = phase_tp_classify(device, reads, truth, unit)
+    phase_dryrun(device)
     phase_native(probe)
     phase_dist_classify(phase_cli(probe))
     phase_realtime(probe)
@@ -2240,7 +2432,8 @@ def run_phases(device, smi: str) -> dict:
         "launches_per_batch": {
             "unit": unit["launches"]["conv1d_bn_relu"] / unit["batches"],
             "hybrid": (hybrid["launches"]["conv1d_bn_relu"]
-                       / hybrid["batches"])},
+                       / hybrid["batches"]),
+            "tp": tp["launches"]["conv1d_bn_relu"] / tp["batches"]},
         "max_abs_err": kernels["max_abs_err"],
         "ms": kernels["ms"],
         "plain_ms": kernels["plain_ms"],

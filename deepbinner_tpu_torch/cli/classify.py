@@ -17,6 +17,7 @@ prints the merged table, byte-identical to a single process's.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -359,6 +360,27 @@ def _classify_resumable(
     return rows, resumed_reads
 
 
+def _profiled(profile_dir, device):
+    """``torch.profiler`` over the run inside when ``profile_dir`` is set
+    (the host ops, and the card's kernels and copies where the device is the
+    card); the trace is written into ``profile_dir`` as Chrome JSON
+    (``<host>_<pid>.<ms>.pt.trace.json``) when the run ends."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    log(f"  writing a torch.profiler trace to {profile_dir}")
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
 def classify_fast5_files(args) -> None:
     from deepbinner_tpu_torch.parallel import dist
     from deepbinner_tpu_torch.runner.executor import ExecutorStats
@@ -383,19 +405,20 @@ def classify_fast5_files(args) -> None:
     runner = StreamRunner(program, args, stats)
     resumed_reads = 0
     try:
-        if shard_dir:
-            rows, resumed_reads = _classify_resumable(
-                runner, shard, shard_dir,
-                int(getattr(args, "shard_files", 0) or 256), progress,
-                _run_fingerprint(args, program),
-            )
-        else:
-            for result in runner.classify(shard):
-                rows.append((result.read_id,
-                             table.class_index_to_call(result.call)))
-                if args.verbose:
-                    verbose_rows.append(result_to_row(result, True, dual))
-                progress.update()
+        with _profiled(getattr(args, "profile_dir", None), program.device):
+            if shard_dir:
+                rows, resumed_reads = _classify_resumable(
+                    runner, shard, shard_dir,
+                    int(getattr(args, "shard_files", 0) or 256), progress,
+                    _run_fingerprint(args, program),
+                )
+            else:
+                for result in runner.classify(shard):
+                    rows.append((result.read_id,
+                                 table.class_index_to_call(result.call)))
+                    if args.verbose:
+                        verbose_rows.append(result_to_row(result, True, dual))
+                    progress.update()
     finally:
         runner.close()
     elapsed = progress.finish()

@@ -8,7 +8,10 @@ differences in `classify` and `realtime`:
   JAX CLI goes by ``JAX_PLATFORMS``; without a card, ``cuda`` is an error;
 - ``--reader_processes -1`` (the default) means reader worker processes on
   ``--device cuda`` and in-process reader threads on ``--device cpu``;
-- ``--profile_dir`` is not ported yet;
+- ``--profile_dir DIR`` writes a ``torch.profiler`` trace (Chrome JSON)
+  of the `classify` run into DIR, where the JAX CLI writes a
+  ``jax.profiler`` trace; `realtime` takes the flag and ignores it, as the
+  JAX CLI does;
 - ``--pallas`` runs the trunk after stem1 as one launch of the CUDA
   megakernel per batch, as the JAX CLI's ``--pallas`` runs the Pallas
   megakernel; without it every unit is one launch of the unit kernel;
@@ -149,6 +152,9 @@ def _add_classify_common(parser: argparse.ArgumentParser) -> None:
                            "be asked for)")
     perf.add_argument("--device_count", type=int, default=0,
                       help="Limit devices used (0 = all local devices)")
+    perf.add_argument("--profile_dir",
+                      help="Write a torch.profiler trace (Chrome JSON) for "
+                           "this run")
     # Reference-compat no-ops:
     perf.add_argument("--intra_op_parallelism_threads", type=int, default=12,
                       help=argparse.SUPPRESS)

@@ -21,6 +21,13 @@ Counterpart of ``deepbinner_tpu/models/pallas_apply.py``:
   ``HYBRID_PALLAS_UNITS``) and the library's conv everywhere else.  The
   kernel plans its own tiles (:func:`~deepbinner_tpu_torch.ops.conv_kernel.plan_unit`),
   so the table's Pallas tile arguments have no counterpart.
+- :func:`apply_inference_kernels_tp` (the JAX dry run's ``classify_step``
+  under ``param_sharding``'s column-parallel weights): the unit composition
+  over the ranks of one ``'model'`` group, each holding a column shard of
+  every unit (:func:`shard_network`).  Each unit runs the unit kernel on
+  every rank's shard, on that rank's device, and the slices are gathered in
+  rank order along C on the group's first device, which hands the whole
+  activation to every rank for the next unit.
 
 The BatchNorm affine is folded and the trunk's weights are packed once,
 when the network is put on its device (:func:`fold_network`), not on every
@@ -30,7 +37,7 @@ call.
 from __future__ import annotations
 
 import dataclasses
-from typing import Collection, Dict, Tuple
+from typing import Collection, Dict, FrozenSet, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,19 +57,31 @@ from deepbinner_tpu_torch.ops.trunk_kernel import (
     pack_trunk,
     trunk_segment,
 )
+from deepbinner_tpu_torch.parallel.mesh import shard_columns, split_axis
 
 Unit = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # kernel, scale, bias
+
+# What the column-parallel composition did in this process: gathers of the
+# ranks' slices of a unit's output, and copies of an activation between two
+# devices (a unit's input to a rank, a slice back to the group's first
+# device).  Only apply_inference_kernels_tp adds to them.
+GATHERS = 0
+PEER_COPIES = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class FoldedNet:
-    """DemuxNet weights ready for the kernels, on one device."""
+    """DemuxNet weights ready for the kernels, on one device; or one rank's
+    column shard of them (:func:`shard_network`), whose ``split`` names the
+    units whose output features it holds a block of."""
 
     config: NetworkConfig
     units: Dict[str, Unit]       # flax scope → folded (kernel, scale, bias)
     dense_weight: torch.Tensor   # (num_classes, head_features)
     dense_bias: torch.Tensor     # (num_classes,)
-    trunk: PackedTrunk           # the units after stem1, packed for the megakernel
+    trunk: Optional[PackedTrunk]  # the units after stem1, packed for the
+                                  # megakernel (None in a column shard)
+    split: FrozenSet[str] = frozenset()
 
 
 def fold_network(model: DemuxNet, device: torch.device) -> FoldedNet:
@@ -77,6 +96,33 @@ def fold_network(model: DemuxNet, device: torch.device) -> FoldedNet:
         bias = model.classifier.bias.detach().to(device).contiguous()
     return FoldedNet(model.config, units, weight, bias,
                      pack_trunk(model.config, units))
+
+
+def shard_network(net: FoldedNet, rank: int, model: int) -> FoldedNet:
+    """Rank ``rank`` of ``model``'s column shard of ``net``, on ``net``'s
+    device: each unit's ``(kernel[..., lo:hi], scale[lo:hi], bias[lo:hi])``,
+    made contiguous once here, where the unit's C_out divides by ``model``
+    (:func:`~deepbinner_tpu_torch.parallel.mesh.split_axis`); a unit whose
+    C_out does not, and the dense head (13 classes), stay whole.  The scale
+    and bias are per output channel, so they follow their kernel's split.
+    A shard has no packed trunk: the megakernel's one launch cannot take
+    column shards."""
+    units, split = {}, set()
+    for scope, (kernel, scale, bias) in net.units.items():
+        if split_axis("kernel", kernel.shape, model) is None:
+            units[scope] = (kernel, scale, bias)
+            continue
+        units[scope] = tuple(
+            shard_columns(t, t.dim() - 1, rank, model).contiguous()
+            for t in (kernel, scale, bias))
+        split.add(scope)
+    if split_axis("weight", net.dense_weight.shape, model) is not None:
+        raise ValueError(f"a dense head of {net.dense_weight.shape[0]} "
+                         f"classes would split over {model} ranks; the "
+                         f"column-parallel composition gathers conv units "
+                         f"only")
+    return FoldedNet(net.config, units, net.dense_weight, net.dense_bias,
+                     None, frozenset(split))
 
 
 def _as_windows(windows: torch.Tensor) -> torch.Tensor:
@@ -119,6 +165,47 @@ def apply_inference_kernels(net: FoldedNet, windows: torch.Tensor) -> torch.Tens
                                     pool=pool)
 
     return _demuxnet(net, windows, unit)
+
+
+def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``, counting the copy where the devices differ."""
+    global PEER_COPIES
+    if x.device == device:
+        return x
+    PEER_COPIES += 1
+    return x.to(device)
+
+
+def apply_inference_kernels_tp(shards: Sequence[FoldedNet],
+                               windows: torch.Tensor) -> torch.Tensor:
+    """Softmax probabilities of one ``'model'`` group: ``shards[k]`` is rank
+    k's column shard (:func:`shard_network`) on rank k's device, and the
+    windows lie on rank 0's.
+
+    A unit that is split runs the unit kernel on every rank's shard, on
+    that rank's device, and its slices are gathered in rank order along C
+    on rank 0's device; an inception branch is gathered before the branch
+    concat, so the concat sees the unsharded channel order.  A unit that
+    is not split runs once, on rank 0.  ``pool3_same``, the global average
+    pool and the dense head run on the gathered tensor on rank 0.
+    """
+    leader = shards[0]
+
+    def unit(scope, x, dilation, pool):
+        global GATHERS
+        if scope not in leader.split:
+            return fused_conv1d_bn_relu(x, *leader.units[scope],
+                                        dilation=dilation, pool=pool)
+        parts = []
+        for shard in shards:
+            weights = shard.units[scope]
+            parts.append(fused_conv1d_bn_relu(
+                _to(x, weights[0].device), *weights, dilation=dilation,
+                pool=pool))
+        GATHERS += 1
+        return torch.cat([_to(p, x.device) for p in parts], dim=-1)
+
+    return _demuxnet(leader, windows, unit)
 
 
 # The JAX package's HYBRID_PALLAS_UNITS: the units where a TPU sweep

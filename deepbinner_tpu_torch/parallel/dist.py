@@ -67,6 +67,34 @@ def rank_environ(rank: int, world: int, port: int) -> Dict[str, str]:
             "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
 
 
+def spawn_ranks(target, args: tuple, world: int, device_type: str) -> None:
+    """Run ``target(*args)`` as ``world`` ranks of one process group on this
+    host (spawned processes, ``localhost`` and a free port) and wait for
+    them.  Each rank joins the group before ``target`` runs and leaves it
+    after.  If one rank fails, the others are stopped and
+    ``torch.multiprocessing``'s ``ProcessRaisedException`` or
+    ``ProcessExitedException`` is raised."""
+    import torch.multiprocessing as mp
+
+    port = free_port()
+    log(f"  process group on localhost:{port}")
+    mp.spawn(_spawned_rank, args=(target, args, world, port, device_type),
+             nprocs=world, join=True)
+
+
+def _spawned_rank(local_rank: int, target, args: tuple, world: int, port: int,
+                  device_type: str) -> None:
+    """One rank of :func:`spawn_ranks` (a spawned process)."""
+    os.environ.update(rank_environ(local_rank, world, port))
+    maybe_initialize(device_type)
+    ok = False
+    try:
+        target(*args)
+        ok = True
+    finally:
+        shutdown(ok)
+
+
 def maybe_initialize(device_type: str = "cuda") -> None:
     """Join the process group when launched as one rank of a job.
 

@@ -7,7 +7,12 @@ BatchNorm and puts its weights on each of its devices once, then every batch
 is a sequence of launches on each device's current stream.  With D devices
 (the JAX program's ``('data',)`` mesh) a batch's rows are split into D
 contiguous parts, each part runs on its device, and the D call tables are
-gathered in row order on the first.  On a CUDA device the CNN
+gathered in row order on the first.  With ``model = M`` above 1 the devices
+form a ``D/M × M`` grid (the JAX dry run's ``('data', 'model')`` mesh):
+the rows split over the grid's D/M rows, and each part runs on its row's
+M devices through the column-parallel composition
+(:func:`~deepbinner_tpu_torch.models.kernel_apply.apply_inference_kernels_tp`),
+each device holding its rank's column shard of the weights.  On a CUDA device the CNN
 runs one of the kernel compositions of
 :mod:`~deepbinner_tpu_torch.models.kernel_apply`, chosen by
 ``ClassifyConfig.kernel_path``; on the CPU the same composition runs each
@@ -38,7 +43,9 @@ from deepbinner_tpu_torch.models.kernel_apply import (
     apply_inference_kernels_fused,
     apply_inference_kernels_hybrid,
     apply_inference_kernels_split3,
+    apply_inference_kernels_tp,
     fold_network,
+    shard_network,
 )
 from deepbinner_tpu_torch.models.keras_import import KerasGraphModel
 from deepbinner_tpu_torch.models.network import DemuxNet
@@ -49,7 +56,7 @@ from deepbinner_tpu_torch.ops.calling import (
     reconcile_calls,
 )
 from deepbinner_tpu_torch.ops.preprocess import PreprocessConfig, preprocess_batch
-from deepbinner_tpu_torch.parallel.mesh import split_rows
+from deepbinner_tpu_torch.parallel.mesh import make_grid, split_rows
 
 
 class CallTable(NamedTuple):
@@ -95,8 +102,9 @@ KERNEL_PATHS = {
 }
 
 # What a program holds for one model on one device: DemuxNet folded for the
-# kernels, or an imported Keras graph on that device.
-Net = Union[FoldedNet, KerasGraphModel]
+# kernels, or an imported Keras graph on that device; or, for one group of
+# the 'model' axis, each rank's column shard of DemuxNet on its device.
+Net = Union[FoldedNet, KerasGraphModel, Tuple[FoldedNet, ...]]
 Model = Union[DemuxNet, KerasGraphModel]
 
 
@@ -106,7 +114,9 @@ def _one_end_probs(net: Net, cfg: ClassifyConfig, signal: torch.Tensor,
     windows, mask = preprocess_batch(signal, lengths, cfg.preprocess)
     batch, num_windows, width = windows.shape
     flat = windows.reshape(batch * num_windows, width)
-    if isinstance(net, FoldedNet):
+    if isinstance(net, tuple):
+        probs = apply_inference_kernels_tp(net, flat)
+    elif isinstance(net, FoldedNet):
         probs = KERNEL_PATHS[cfg.kernel_path](net, flat)
     else:
         probs = torch.softmax(net(flat), dim=-1)
@@ -232,32 +242,72 @@ class ClassifyProgram:
     built; each call uploads one batch, runs the step and returns the
     result on the (first) device (``device=None`` means the card).
     ``devices`` (a list; one entry may repeat) makes it data parallel: each
-    call splits the batch's rows over them in order.
+    call splits the batch's rows over them in order.  ``model`` above 1
+    makes the devices a ``data × model`` grid (:func:`make_grid`): the rows
+    split over the grid's rows, and each row's devices run its part with
+    column shards of DemuxNet (the unit path only).
     """
 
     def __init__(
         self,
-        model: Model,
+        start_model: Model,
         cfg: ClassifyConfig,
         end_model: Optional[Model] = None,
         device=None,
         devices: Optional[Sequence] = None,
+        model: int = 1,
     ) -> None:
         if cfg.dual_model and end_model is None:
             raise ValueError("dual_model requires end_model")
         if devices is not None and not devices:
             raise ValueError("devices must name at least one device")
+        if model > 1:
+            if cfg.kernel_path != "unit":
+                raise ValueError(
+                    f"kernel_path {cfg.kernel_path!r} cannot run on a model "
+                    f"axis of {model}: the megakernel's one launch and the "
+                    f"hybrid's library units take no column shards; the "
+                    f"column-parallel composition is the unit path's")
+            if not all(isinstance(m, DemuxNet) for m in (start_model, end_model)
+                       if m is not None):
+                raise ValueError(f"an imported Keras graph runs as its own "
+                                 f"graph; it cannot run on a model axis of "
+                                 f"{model}")
         self.cfg = cfg
         self.devices = [resolve_device(d) for d in
                         (devices if devices is not None else [device])]
+        self.grid = make_grid(self.devices, model=model)
+        # Each grid row's rows of a batch go to its first device.
+        self.leaders = [row[0] for row in self.grid]
         self.device = self.devices[0]
-        nets = {}
-        for dev in self.devices:
-            if dev not in nets:
-                nets[dev] = (_place(model, cfg.kernel_path, dev),
-                             _place(end_model, cfg.kernel_path, dev)
-                             if end_model is not None else None)
-        self.nets = [nets[dev] for dev in self.devices]
+        folded, by_row = {}, {}
+
+        def place(end: int, dev: torch.device, rank: int) -> Optional[Net]:
+            """Model ``end`` (0 start, 1 end) for ``rank`` on ``dev``: folded
+            once per device; with ``model`` above 1, that rank's column
+            shard (two ranks on one card hold different shards)."""
+            m = (start_model, end_model)[end]
+            if m is None:
+                return None
+            if (dev, end) not in folded:
+                folded[dev, end] = _place(m, cfg.kernel_path, dev)
+            if model == 1:
+                return folded[dev, end]
+            return shard_network(folded[dev, end], rank, model)
+
+        def row_nets(row) -> Tuple[Net, Optional[Net]]:
+            if model == 1:
+                return place(0, row[0], 0), place(1, row[0], 0)
+            start = tuple(place(0, dev, k) for k, dev in enumerate(row))
+            if end_model is None:
+                return start, None
+            return start, tuple(place(1, dev, k) for k, dev in enumerate(row))
+
+        self.nets = []  # (start, end) of each grid row; equal rows share one
+        for row in self.grid:
+            if tuple(row) not in by_row:
+                by_row[tuple(row)] = row_nets(row)
+            self.nets.append(by_row[tuple(row)])
         self.start_net, self.end_net = self.nets[0]
 
     def _upload(self, array, device: torch.device) -> Optional[torch.Tensor]:
@@ -280,27 +330,28 @@ class ClassifyProgram:
             return array
         tensor = torch.as_tensor(array)
         return [self._upload(tensor[lo:hi], dev) for (lo, hi), dev in
-                zip(split_rows(tensor.shape[0], len(self.devices)),
-                    self.devices)]
+                zip(split_rows(tensor.shape[0], len(self.leaders)),
+                    self.leaders)]
 
     def upload(self, start_signal, start_lengths, end_signal=None,
                end_lengths=None) -> Tuple:
         """One batch's arrays on the device(s), enqueued on each device's
         current stream (the host memory of pinned arrays is read until the
-        copies are done).  With one device, the four tensors; with D, four
-        lists of D row parts."""
+        copies are done).  With one grid row, the four tensors; with D, four
+        lists of D row parts, each on its row's first device."""
         arrays = (start_signal, start_lengths, end_signal, end_lengths)
-        if len(self.devices) == 1:
+        if len(self.leaders) == 1:
             return tuple(self._upload(a, self.device) for a in arrays)
         return tuple(self._upload_parts(a) for a in arrays)
 
     def upload_events(self) -> List["torch.cuda.Event"]:
-        """One event per device, recorded on its current stream: once all
-        have completed, every upload enqueued before is done (none on the
-        CPU, where an upload is done when it returns)."""
+        """One event per device an upload goes to (each grid row's first),
+        recorded on its current stream: once all have completed, every
+        upload enqueued before is done (none on the CPU, where an upload is
+        done when it returns)."""
         events = []
         if self.device.type == "cuda":
-            for dev in dict.fromkeys(self.devices):
+            for dev in dict.fromkeys(self.leaders):
                 with torch.cuda.device(dev):
                     event = torch.cuda.Event()
                     event.record()
@@ -308,13 +359,13 @@ class ClassifyProgram:
         return events
 
     def _tables(self, arrays) -> List[CallTable]:
-        """The call table of each device's rows."""
+        """The call table of each grid row's rows."""
         parts = self.upload(*arrays)
-        if len(self.devices) == 1:
+        if len(self.leaders) == 1:
             return [classify_step(self.cfg, self.start_net, self.end_net,
                                   *parts)]
         tables = []
-        for k, dev in enumerate(self.devices):
+        for k, dev in enumerate(self.leaders):
             with _on(dev):
                 tables.append(classify_step(
                     self.cfg, *self.nets[k],
@@ -335,8 +386,8 @@ class ClassifyProgram:
                     end_lengths=None) -> torch.Tensor:
         """The CallTable packed into one (B, 3+2C) f32 tensor on the (first)
         device; the streaming executor unpacks it with
-        :func:`unpack_call_table`.  With D devices each packs its rows and
-        the D tables are gathered in row order."""
+        :func:`unpack_call_table`.  With D grid rows each packs its rows
+        and the D tables are gathered in row order."""
         with full_f32(), torch.inference_mode():
             packed = [pack_call_table(t) for t in self._tables(
                 (start_signal, start_lengths, end_signal, end_lengths))]

@@ -449,28 +449,14 @@ def _dp_ranks(args) -> int:
     return args.dp if args.dp > 0 else max(cards, 1)
 
 
-def _spawned_rank(local_rank: int, args, world: int, port: int) -> None:
-    """One rank of ``train --dp`` on this host (a spawned process)."""
-    os.environ.update(dist.rank_environ(local_rank, world, port))
-    dist.maybe_initialize(args.device)
-    ok = False
-    try:
-        train_from_args(args)
-        ok = True
-    finally:
-        dist.shutdown(ok)
-
-
 def _spawn_ranks(args, world: int) -> None:
     """Run ``train`` as ``world`` ranks on this host and wait for them; if
     one fails, the others are stopped and the run fails."""
     import torch.multiprocessing as mp
 
-    port = dist.free_port()
-    log(f"  data-parallel: {world} ranks on this host (localhost:{port})")
+    log(f"  data-parallel: {world} ranks on this host")
     try:
-        mp.spawn(_spawned_rank, args=(args, world, port), nprocs=world,
-                 join=True)
+        dist.spawn_ranks(train_from_args, (args,), world, args.device)
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
         quit_with_error(f"a data-parallel rank failed: {exc}")
 

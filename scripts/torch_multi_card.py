@@ -31,6 +31,15 @@ phase:
    process's step on one card at the full batch and at a rank's share of
    it; then ``train --dp <cards>`` for one epoch through the CLI's own
    spawn.
+4. ``cards_tp``: the ``'model'`` axis on real cards.  ``ClassifyProgram``
+   over a ``make_grid`` of the cards, data 1 × model 2, data 2 × model 2
+   and data 1 × model 4 (those that fit the cards present), on the 2048
+   reads at batch 1024: calls equal to the one-card unit path's on every
+   read, combined probabilities within 1e-5, 2 × 15 K1 launches per grid
+   row per batch; the host ms per batch (every card synchronised) beside
+   the one-card unit path's and the data-parallel split's over as many
+   cards, and the gathers and peer copies (an activation sent between two
+   cards) per batch.
 
 The last lines are each card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, ...}``.  Any failure raises, so the script exits non-zero.
@@ -90,7 +99,7 @@ def _split_profile(program, sig, lens) -> dict:
     _sync_all()
     enqueue = []
     with full_f32(), torch.inference_mode():
-        for k, dev in enumerate(program.devices):
+        for k, dev in enumerate(program.leaders):
             start = time.perf_counter()
             with _on(dev):
                 classify_step(program.cfg, *program.nets[k],
@@ -301,6 +310,73 @@ def phase_cards_train(cards: int) -> dict:
     return line
 
 
+TP_BATCH = 1024
+TP_LAYOUTS = ((1, 2), (2, 2), (1, 4))   # (data, model)
+
+
+def phase_cards_tp(reads, cards: int) -> dict:
+    import numpy as np
+    import torch
+
+    from deepbinner_tpu_torch.models import kernel_apply
+    from deepbinner_tpu_torch.models.checkpoint import load_model
+    from deepbinner_tpu_torch.runner.executor import build_batch
+    from deepbinner_tpu_torch.runner.pipeline import ClassifyProgram
+
+    model = load_model(smoke.START_MODEL)[0]
+    smoke.BATCH = TP_BATCH
+    one = smoke._build_program(extra=["--batch_size", str(TP_BATCH)])
+    cfg = one.cfg
+    one.warm_up(TP_BATCH)
+    base_probs = {}
+    base, _stats, _s, _l = smoke._run_stream(one, reads, base_probs)
+    _ids, sig, lens, _e, _el = build_batch(reads[:TP_BATCH], cfg.preprocess,
+                                           TP_BATCH, False)
+    sig = torch.from_numpy(sig).pin_memory()
+    lens = torch.from_numpy(lens).pin_memory()
+    lines = {"one_card_ms": _split_ms(one, sig, lens)}
+    for data, model_axis in TP_LAYOUTS:
+        count = data * model_axis
+        if count > cards:
+            lines[f"d{data}_m{model_axis}"] = f"not run: {cards} cards"
+            continue
+        devices = [torch.device("cuda", k) for k in range(count)]
+        program = ClassifyProgram(model, cfg, devices=devices, model=model_axis)
+        program.warm_up(TP_BATCH)
+        probs = {}
+        calls, stats, seconds, launches = smoke._run_stream(program, reads,
+                                                            probs)
+        what = f"cards_tp data {data} × model {model_axis}"
+        smoke._check_launches(launches, stats.batches,
+                              {"conv1d_bn_relu": 15 * count,
+                               "trunk_megakernel": 0}, what)
+        smoke._same_calls(what, calls, base)
+        diff = max(float(np.abs(p - base_probs[rid]).max())
+                   for rid, p in probs.items())
+        if diff > 1e-5:
+            raise AssertionError(f"{what}: combined probabilities differ "
+                                 f"from one card's by {diff}")
+        kernel_apply.GATHERS = kernel_apply.PEER_COPIES = 0
+        program.call_packed(sig, lens).cpu()
+        gathers, copies = kernel_apply.GATHERS, kernel_apply.PEER_COPIES
+        split = ClassifyProgram(model, cfg, devices=devices)
+        split.warm_up(TP_BATCH)
+        lines[f"d{data}_m{model_axis}"] = {
+            "grid": [[str(d) for d in row] for row in program.grid],
+            "batches": stats.batches, "stream_s": seconds,
+            "launches": launches, "same_calls": len(calls),
+            "max_prob_diff_vs_one_card": diff,
+            "batch_ms": _split_ms(program, sig, lens),
+            "data_parallel_batch_ms": _split_ms(split, sig, lens),
+            "gathers_per_batch": gathers, "peer_copies_per_batch": copies}
+        del program, split
+        torch.cuda.empty_cache()
+    smoke.BATCH = 256
+    smoke.emit("cards_tp", cards=cards, reads=len(reads), batch=TP_BATCH,
+               reps=SPLIT_REPS, **lines)
+    return lines
+
+
 def main() -> int:
     import subprocess
 
@@ -326,6 +402,7 @@ def main() -> int:
                    torch=torch.__version__, kernel_build_s=smoke.build_kernels())
         reads, _truth = smoke._simulated_reads(2048, seed=2024)
         phase_split(reads, cards)
+        phase_cards_tp(reads, cards)
         phase_cards_classify(cards)
         phase_cards_train(cards)
     finally:

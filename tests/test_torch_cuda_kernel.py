@@ -25,6 +25,7 @@ from deepbinner_tpu_torch.models.kernel_apply import (
     apply_inference_kernels,
     apply_inference_kernels_hybrid,
     fold_network,
+    shard_network,
 )
 from deepbinner_tpu_torch.models.network import NetworkConfig
 from deepbinner_tpu_torch.ops import conv_kernel, trunk_kernel
@@ -173,6 +174,107 @@ def test_kernel_rejects_bad_inputs(cuda_device, bad):
         w = w.cpu()
     with pytest.raises((ValueError, TypeError)):
         fused_conv1d_bn_relu(x, w, scale, bias)
+
+
+def _unit_geometries(config):
+    """(scope, length, dilation, pool) of every unit of ``config``, in order."""
+    length = config.input_length
+    units = [("stem1", length, 1, False), ("stem2", length, 1, True)]
+    length //= 2
+    for i in range(len(config.block_features)):
+        units += [(f"block{i}_conv1", length, 1, False),
+                  (f"block{i}_conv2", length, 1, True)]
+        length //= 2
+    for i in range(len(config.inception_features)):
+        for branch, dilation in (("branch1x1", 1), ("branch3", 1),
+                                 ("branch_dilated", 2 ** (i + 1)),
+                                 ("branch_pool", 1)):
+            units.append((f"inception{i}/{branch}", length, dilation, True))
+        length //= 2
+    units.append(("head_conv", length, 1, False))
+    return units
+
+
+# Every flagship unit at model 2 and 4 (48, 64, 96, 32 and 128 columns all
+# divide), and the tiny model's at model 2, as the 'model' axis splits them.
+TINY_CONFIG = NetworkConfig(input_length=256, stem_features=8,
+                            block_features=(8,), inception_features=(16,),
+                            head_features=16)
+SHARD_CASES = ([("flagship", m, i) for m in (2, 4)
+                for i in range(len(_unit_geometries(NetworkConfig())))]
+               + [("tiny", 2, i) for i in range(len(_unit_geometries(TINY_CONFIG)))])
+
+
+@functools.lru_cache(maxsize=None)
+def _folded(name):
+    model, config, _meta = load_model(START_MODEL if name == "flagship"
+                                      else TINY_MODEL)
+    return fold_network(model, torch.device("cuda")), config
+
+
+@pytest.mark.parametrize("name,model,index", SHARD_CASES)
+def test_kernel_on_column_shards(cuda_device, record_property, name, model,
+                                 index):
+    """K1 on each rank's column shard of a unit (C_out 24, 16, 12, 8 at the
+    flagship, 4 and 2 at the tiny model; widths under 4 take the scalar
+    weight and store paths) against its plain version and a rerun; the
+    rank-order gather against the unsharded K1, whose largest difference
+    is recorded (``max_abs_diff_vs_whole``)."""
+    net, config = _folded(name)
+    scope, length, dilation, pool = _unit_geometries(config)[index]
+    kernel = net.units[scope][0]
+    assert kernel.shape[2] % model == 0
+    gen = torch.Generator(device=cuda_device).manual_seed(index)
+    x = torch.randn((37, length, kernel.shape[1]), generator=gen,
+                    device=cuda_device)
+    parts = []
+    for rank in range(model):
+        weights = shard_network(net, rank, model).units[scope]
+        assert weights[0].shape[2] == kernel.shape[2] // model
+        before = conv_kernel.LAUNCHES
+        got = fused_conv1d_bn_relu(x, *weights, dilation=dilation, pool=pool)
+        assert conv_kernel.LAUNCHES == before + 1
+        want = conv1d_bn_relu_reference(x, *weights, dilation=dilation,
+                                        pool=pool)
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, fused_conv1d_bn_relu(x, *weights,
+                                                     dilation=dilation,
+                                                     pool=pool))
+        parts.append(got)
+    whole = fused_conv1d_bn_relu(x, *net.units[scope], dilation=dilation,
+                                 pool=pool)
+    gathered = torch.cat(parts, dim=-1)
+    diff = (gathered - whole).abs().max().item()
+    record_property("max_abs_diff_vs_whole", diff)
+    print(f"{name} {scope} model {model}: gathered vs whole K1 max abs "
+          f"diff {diff}")
+    torch.testing.assert_close(gathered, whole, **TOL)
+
+
+def test_model_axis_program_on_the_card_matches_the_unit_path(cuda_device):
+    """ClassifyProgram over [cuda] * 4 with model=2 (data 2 × model 2 on one
+    card): the unit path's calls, combined probabilities within 1e-5, and
+    2 × 2 × 9 K1 launches per batch."""
+    model, net_cfg, _meta = load_model(TINY_MODEL)
+    pre = PreprocessConfig(scan_size=768, window=net_cfg.input_length,
+                           stride=net_cfg.input_length // 2, trim_scan=512,
+                           host_trim=True, wire="int8")
+    cfg = ClassifyConfig(pre, CallingConfig())
+    reads = _tiny_program_reads()
+    results, launches = {}, {}
+    for layout, kwargs in (("unit", {"device": "cuda"}),
+                           ("tp", {"devices": ["cuda"] * 4, "model": 2})):
+        program = ClassifyProgram(model, cfg, **kwargs)
+        before = conv_kernel.LAUNCHES
+        results[layout] = {r.read_id: r for r in classify_stream(
+            program, iter(reads), batch_size=8)}
+        launches[layout] = conv_kernel.LAUNCHES - before
+    assert launches == {"unit": 9 * 2, "tp": 36 * 2}  # 2 batches
+    for read_id, want in results["unit"].items():
+        got = results["tp"][read_id]
+        assert got.call == want.call, read_id
+        np.testing.assert_allclose(got.start_probs, want.start_probs,
+                                   rtol=0, atol=1e-5)
 
 
 def _segment_input(cfg, segment, n, device, seed=0):

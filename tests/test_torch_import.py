@@ -1,5 +1,5 @@
 """The port imports with jax, flax, h5py and keras blocked and loads
-nothing of the JAX package."""
+nothing of the JAX package, ``__graft_entry__`` included."""
 
 import json
 import pkgutil
@@ -14,7 +14,7 @@ import importlib, json, pkgutil, sys
 class _Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "h5py",
-                                  "keras", "tensorflow"):
+                                  "keras", "tensorflow", "__graft_entry__"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -36,7 +36,8 @@ print(json.dumps({
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                              "h5py", "keras", "tensorflow",
-                                             "deepbinner_tpu")),
+                                             "deepbinner_tpu",
+                                             "__graft_entry__")),
     "cuda": torch.cuda.is_available(),
     "resolve_raised": raised,
     "native_loaded": build.loaded(),
@@ -64,7 +65,8 @@ def test_port_imports_without_jax():
     assert "deepbinner_tpu_torch.runner.mp_reader" in expected
     assert "deepbinner_tpu_torch.native.build" in expected
     for name in ("cli.bin_reads", "cli.realtime", "utils.seqio", "native.zstd",
-                 "parallel.mesh", "parallel.dist", "models.keras_import"):
+                 "parallel.mesh", "parallel.dist", "models.keras_import",
+                 "entry"):
         assert f"deepbinner_tpu_torch.{name}" in expected
     assert result["pod5_libraries"] == []  # neither zstandard nor flatbuffers
     assert result["native_loaded"] == []  # importing builds nothing
