@@ -28,7 +28,7 @@ def _library() -> ctypes.CDLL:
             lib = build.load("vbz_decode")
             lib.db_vbz_unpack.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int16),
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int16),
             ]
             lib.db_vbz_unpack.restype = ctypes.c_int64
             _lib = lib
@@ -46,17 +46,22 @@ def available() -> bool:
     return True
 
 
-def unpack(raw: bytes, count: int) -> np.ndarray:
+def unpack(raw: bytes, count: int, keep: Optional[int] = None) -> np.ndarray:
     """svb16-unpack + zigzag + wrapping-int16 prefix sum, one C pass.
 
-    ``raw`` is the zstd-decompressed vbz payload; returns the (count,)
-    int16 signal.  Raises ValueError on a truncated stream (as the numpy
-    path does).
+    ``raw`` is the zstd-decompressed vbz payload of ``count`` samples;
+    returns its first ``keep`` (default: all ``count``) as an int16 signal,
+    equal to the same prefix of the whole unpack.  Raises ValueError on a
+    truncated stream, also one cut after the kept prefix (as the numpy path
+    does), and on a ``keep`` outside [0, count].
     """
+    keep = count if keep is None else keep
+    if not 0 <= keep <= count:
+        raise ValueError(f"keep {keep} outside [0, {count}]")
     lib = _library()
-    out = np.empty(count, np.int16)
+    out = np.empty(keep, np.int16)
     status = lib.db_vbz_unpack(
-        raw, len(raw), count,
+        raw, len(raw), count, keep,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
     )
     if status != 0:

@@ -240,7 +240,8 @@ class _Off:
 
 # The seconds and counts a pod5 file's read/file span carries
 # (utils/pod5.read_pod5's ``times``).
-_POD5_TIMES = ("open", "tables", "zstd", "unpack", "bytes", "chunks")
+_POD5_TIMES = ("open", "tables", "zstd", "unpack", "bytes", "chunks",
+               "samples", "unpacked")
 
 
 def _pool_worker(

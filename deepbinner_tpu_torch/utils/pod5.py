@@ -84,7 +84,14 @@ def svb16_encode(values: np.ndarray) -> bytes:
     return keys.tobytes() + data.tobytes()
 
 
-def svb16_decode(payload: bytes, count: int) -> np.ndarray:
+def svb16_decode(payload: bytes, count: int,
+                 keep: Optional[int] = None) -> np.ndarray:
+    """The first ``keep`` (default: all) of the ``count`` values in
+    ``payload``.  Raises ValueError where ``payload`` holds fewer bytes than
+    its keys say all ``count`` values take, whatever ``keep``."""
+    keep = count if keep is None else keep
+    if not 0 <= keep <= count:
+        raise ValueError(f"keep {keep} outside [0, {count}]")
     if count == 0:
         return np.zeros(0, np.uint16)
     key_len = (count + 7) // 8
@@ -92,10 +99,11 @@ def svb16_decode(payload: bytes, count: int) -> np.ndarray:
         np.frombuffer(payload[:key_len], np.uint8), bitorder="little"
     )[:count].astype(bool)
     data = np.frombuffer(payload[key_len:], np.uint8)
+    if data.size < count + int(np.count_nonzero(keys)):
+        raise ValueError("svb16 stream truncated")
+    keys = keys[:keep]
     sizes = 1 + keys.astype(np.int64)
     ends = np.cumsum(sizes)
-    if data.size < int(ends[-1]):
-        raise ValueError("svb16 stream truncated")
     starts = ends - sizes
     out = data[starts].astype(np.uint16)
     out[keys] |= data[starts[keys] + 1].astype(np.uint16) << 8
@@ -115,37 +123,47 @@ def vbz_compress(signal: np.ndarray) -> bytes:
 
 
 def vbz_decompress(payload: bytes, sample_count: int,
+                   keep: Optional[int] = None,
                    times: Optional[dict] = None) -> np.ndarray:
-    """One vbz chunk.  ``times``: where given, its ``"zstd"`` and
-    ``"unpack"`` seconds grow by this chunk's, and its ``"chunks"`` by 1."""
+    """One vbz chunk of ``sample_count`` samples → its first ``keep``
+    (default: all).  zstd decompresses the whole chunk; the unpack stops
+    after ``keep`` samples.  ``times``: where given, its ``"zstd"`` and
+    ``"unpack"`` seconds grow by this chunk's, its ``"chunks"`` by 1, its
+    ``"samples"`` by ``sample_count`` and its ``"unpacked"`` by ``keep``."""
     # native.zstd keeps one decompression context per thread: the
     # in-process reader threads (runner.executor.iter_signals) decode pod5
     # files side by side, and a shared context is not safe for that.
     from deepbinner_tpu_torch.native import zstd
 
     size = (sample_count + 7) // 8 + 2 * sample_count
+    keep = sample_count if keep is None else keep
     if times is None:
-        return _svb16_unpack(zstd.decompress(payload, size), sample_count)
+        return _svb16_unpack(zstd.decompress(payload, size), sample_count,
+                             keep)
     begin = time.perf_counter()
     raw = zstd.decompress(payload, size)
     middle = time.perf_counter()
-    out = _svb16_unpack(raw, sample_count)
+    out = _svb16_unpack(raw, sample_count, keep)
     times["zstd"] += middle - begin
     times["unpack"] += time.perf_counter() - middle
     times["chunks"] += 1
+    times["samples"] += sample_count
+    times["unpacked"] += keep
     return out
 
 
-def _svb16_unpack(raw: bytes, sample_count: int) -> np.ndarray:
-    """svb16 keys and bytes → zig-zag decode → the delta prefix sum."""
+def _svb16_unpack(raw: bytes, sample_count: int, keep: int) -> np.ndarray:
+    """svb16 keys and bytes → zig-zag decode → the delta prefix sum, for
+    the first ``keep`` of the ``sample_count`` samples."""
     from deepbinner_tpu_torch.native import vbz as native_vbz
 
     # One fused C pass where it can be built (native/vbz.py); the numpy
     # chain below stays its oracle (tests/test_torch_native.py).  Both
-    # raise ValueError when ``raw`` holds fewer bytes than its keys need.
+    # raise ValueError when ``raw`` holds fewer bytes than its keys say the
+    # whole chunk needs, whatever ``keep``.
     if native_vbz.available():
-        return native_vbz.unpack(raw, sample_count)
-    delta = _zigzag_decode(svb16_decode(raw, sample_count))
+        return native_vbz.unpack(raw, sample_count, keep)
+    delta = _zigzag_decode(svb16_decode(raw, sample_count, keep))
     # int64 cumsum then int16 cast == wrapping int16 prefix sum
     return np.cumsum(delta.astype(np.int64)).astype(np.int16)
 
@@ -354,7 +372,10 @@ def _decode_read_signal(
     random-access unit; fast5 gets the same treatment via HDF5 hyperslabs
     (utils/fast5._slice_signal).  With the default 102,400-sample chunks a
     dual-model classify decodes ≤2 chunks per end of a long read instead
-    of all of them.
+    of all of them.  A chunk only the head needs is zstd-decompressed whole
+    but unpacked only up to the head's last sample (``keep``); a chunk the
+    tail needs is unpacked whole, since its prefix sum runs from the
+    chunk's first sample.
     """
     decode = (vbz_decompress if times is None
               else functools.partial(vbz_decompress, times=times))
@@ -374,9 +395,10 @@ def _decode_read_signal(
         need_tail = tail > 0 and hi > tail_lo  # overlaps [total-tail, total)
         if not (need_head or need_tail):
             continue  # untouched chunk: never decompressed
-        chunk = decode(payloads[int(i)], count)
+        keep = count if need_tail else min(head - lo, count)
+        chunk = decode(payloads[int(i)], count, keep=keep)
         if need_head:
-            parts.append(chunk[: max(0, min(head - lo, count))])
+            parts.append(chunk[: min(head - lo, count)])
         if need_tail:
             parts.append(chunk[max(0, tail_lo - lo):])
     return np.concatenate(parts) if parts else np.zeros(0, np.int16)
@@ -394,7 +416,9 @@ def read_pod5(path: str | os.PathLike, head: int = 0, tail: int = 0,
     whose ``"open"`` (reading the file's bytes), ``"tables"`` (the footer,
     the Arrow IPC tables and the columns' ``to_pylist``), ``"zstd"`` and
     ``"unpack"`` (svb16 and the prefix sum) seconds grow by this file's,
-    and whose ``"bytes"`` and ``"chunks"`` (decoded) counts too.
+    and whose ``"bytes"``, ``"chunks"`` (decoded), ``"samples"`` (of the
+    chunks zstd decompressed) and ``"unpacked"`` (samples unpacked) counts
+    too.
     """
     import pyarrow as pa
 

@@ -166,6 +166,72 @@ def test_native_vbz_unpack_parity():
         vbz.unpack(raw[:-3], 512)
 
 
+def _vbz_raw(count, seed=13):
+    """A signal of ``count`` samples, mostly narrow deltas with a wide one
+    every 13th, and its zstd-decompressed vbz payload."""
+    rng = np.random.default_rng(seed)
+    sig = rng.integers(300, 700, count).astype(np.int16)
+    sig[::13] = rng.integers(-32768, 32767, sig[::13].size)
+    raw = zstandard.ZstdDecompressor().decompress(
+        jax_pod5.vbz_compress(sig), max_output_size=(count + 7) // 8 + 2 * count)
+    return sig, raw
+
+
+@pytest.fixture(params=["native", "numpy"])
+def unpack_path(request, monkeypatch):
+    """``pod5._svb16_unpack`` on the C pass, or on the numpy oracle that
+    runs where there is no g++."""
+    if request.param == "native":
+        reason = build.missing("vbz_decode")
+        if reason is not None:
+            pytest.skip(f"the native vbz unpacker cannot be built here: {reason}")
+        assert vbz.available()
+    else:
+        monkeypatch.setattr(vbz, "available", lambda: False)
+    return request.param
+
+
+@pytest.mark.parametrize("count", [4096, 4099])
+@pytest.mark.parametrize("keep", [0, 1, 7, 8, 9, "count-1", "count"])
+def test_bounded_unpack_is_the_prefix_of_the_full_unpack(unpack_path, count,
+                                                         keep):
+    """The unpack bounded at ``keep`` gives the first ``keep`` samples of
+    the whole unpack, on both paths, for a count a multiple of 8 or not."""
+    keep = {"count-1": count - 1, "count": count}.get(keep, keep)
+    sig, raw = _vbz_raw(count)
+    full = pod5._svb16_unpack(raw, count, count)
+    np.testing.assert_array_equal(full, sig)
+    got = pod5._svb16_unpack(raw, count, keep)
+    assert got.dtype == np.int16 and got.shape == (keep,)
+    np.testing.assert_array_equal(got, full[:keep])
+    if unpack_path == "native":
+        np.testing.assert_array_equal(vbz.unpack(raw, count, keep), sig[:keep])
+
+
+@pytest.mark.parametrize("cut", ["last_byte", "after_prefix"])
+@pytest.mark.parametrize("keep", [0, 9, 4098])
+def test_bounded_unpack_still_rejects_a_truncated_chunk(unpack_path, cut,
+                                                        keep):
+    """A chunk cut after the kept prefix is still a damaged chunk: both
+    paths raise ValueError whatever ``keep``, as for the whole unpack."""
+    count = 4099
+    sig, raw = _vbz_raw(count)
+    key_len = (count + 7) // 8
+    keys = np.unpackbits(np.frombuffer(raw[:key_len], np.uint8),
+                         bitorder="little")[:count]
+    prefix_end = key_len + keep + int(keys[:keep].sum())  # the prefix's bytes
+    short = raw[:-1] if cut == "last_byte" else raw[:prefix_end]
+    assert len(short) < len(raw)
+    np.testing.assert_array_equal(pod5._svb16_unpack(raw, count, keep),
+                                  sig[:keep])
+    with pytest.raises(ValueError):
+        pod5._svb16_unpack(short, count, keep)
+    with pytest.raises(ValueError):
+        pod5._svb16_unpack(raw, count, count + 1)
+    with pytest.raises(ValueError):
+        pod5._svb16_unpack(raw, count, -1)
+
+
 def test_missing_compiler_means_not_available(monkeypatch):
     """Without g++ neither library is available, and classify reads
     through h5py and numpy; nothing is built."""

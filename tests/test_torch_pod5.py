@@ -149,7 +149,8 @@ def test_port_footer_follows_flatbuffers_rules():
 
 
 def test_pod5_head_tail_chunk_lazy(tmp_path, monkeypatch):
-    """head/tail decode touches ONLY the covering vbz chunks."""
+    """head/tail decode touches ONLY the covering vbz chunks, and unpacks a
+    chunk only the head needs only up to the head's last sample."""
     rng = np.random.default_rng(7)
     long = rng.integers(200, 800, 10_000).astype(np.int16)
     short = rng.integers(200, 800, 900).astype(np.int16)  # single chunk
@@ -160,26 +161,31 @@ def test_pod5_head_tail_chunk_lazy(tmp_path, monkeypatch):
     calls = []
     real = pod5.vbz_decompress
 
-    def counting(payload, count):
-        calls.append(count)
-        return real(payload, count)
+    def counting(payload, count, keep=None):
+        calls.append((count, keep))
+        return real(payload, count, keep)
 
     monkeypatch.setattr(pod5, "vbz_decompress", counting)
 
+    # (count, keep) per chunk decoded: the head's two chunks, the second
+    # bounded at the head's end; the tail's two whole; the short read,
+    # which the slices cover whole, decoded whole.
+    head_tail = [(1000, 1000), (1000, 500), (1000, 1000), (1000, 1000),
+                 (900, None)]
     got = dict(pod5.read_pod5(path, head=1500, tail=1200))
-    assert len(calls) == 5, calls  # 2 head + 2 tail chunks; short: 1
+    assert calls == head_tail, calls  # 2 head + 2 tail chunks; short: 1
     np.testing.assert_array_equal(
         got["long_read"], np.concatenate([long[:1500], long[-1200:]]))
     np.testing.assert_array_equal(got["short_read"], short)
 
     calls.clear()
     got = dict(pod5.read_pod5(path, head=1500))
-    assert len(calls) == 3, calls
+    assert calls == [(1000, 1000), (1000, 500), (900, None)], calls
     np.testing.assert_array_equal(got["long_read"], long[:1500])
 
     calls.clear()
     got2 = dict(read_signal_file(str(path), 1500, 1200))
-    assert len(calls) == 5
+    assert calls == head_tail, calls
     np.testing.assert_array_equal(
         got2["long_read"], np.concatenate([long[:1500], long[-1200:]]))
 
@@ -207,6 +213,69 @@ def test_pod5_head_tail_matches_trim_signal_semantics(tmp_path):
     for a, b in zip(build_batch_arrays(lazy, spec)[1:],
                     build_batch_arrays(full, spec)[1:]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def edge_reads(tmp_path_factory):
+    """Reads in 1000-sample chunks around the slices below: shorter than
+    every head, inside one chunk, at a chunk's edge, across chunks; and
+    the file they are written to."""
+    rng = np.random.default_rng(9)
+    lengths = [300, 999, 1000, 1001, 1700, 2000, 2501, 3700, 6000, 10_000]
+    reads = [(f"edge{n}", rng.normal(450, 60, n).astype(np.int16))
+             for n in lengths]
+    path = tmp_path_factory.mktemp("edges") / "edges.pod5"
+    pod5.write_pod5(path, reads, chunk_size=1000)
+    return reads, path
+
+
+@pytest.fixture(params=["native", "numpy"])
+def unpack_path(request, monkeypatch):
+    from deepbinner_tpu_torch.native import build, vbz
+
+    if request.param == "native":
+        reason = build.missing("vbz_decode")
+        if reason is not None:
+            pytest.skip(f"the native vbz unpacker cannot be built here: {reason}")
+    else:
+        monkeypatch.setattr(vbz, "available", lambda: False)
+    return request.param
+
+
+@pytest.mark.parametrize("tail", [0, 400, 1000, 1500])
+@pytest.mark.parametrize("head", [700, 1000, 1001, 2500])
+def test_pod5_bounded_unpack_is_trim_of_full_decode(edge_reads, unpack_path,
+                                                    head, tail):
+    """The head's bounded unpack gives the reads _trim_signal cuts from the
+    whole decode, and the JAX package's read_pod5, head alone and with a
+    tail; the counts say how much was unpacked."""
+    from deepbinner_tpu_torch.runner.mp_reader import _POD5_TIMES, _trim_signal
+
+    reads, path = edge_reads
+    times = dict.fromkeys(_POD5_TIMES, 0)
+    got = pod5.read_pod5(path, head, tail, times)
+    full = pod5.read_pod5(path)
+    _assert_same_reads(full, reads)
+    _assert_same_reads(got, [(r, _trim_signal(s, head, tail))
+                             for r, s in reads])
+    _assert_same_reads(got, jax_pod5.read_pod5(path, head, tail))
+    chunk = 1000
+    samples = unpacked = 0
+    for _r, signal in reads:
+        n = signal.size
+        if n <= head + tail:  # the slices cover it: decoded whole
+            samples += n
+            unpacked += n
+            continue
+        for lo in range(0, n, chunk):
+            count = min(chunk, n - lo)
+            in_head, in_tail = lo < head, tail > 0 and lo + count > n - tail
+            if in_head or in_tail:
+                samples += count
+                unpacked += count if in_tail else min(head - lo, count)
+    assert (times["samples"], times["unpacked"]) == (samples, unpacked)
+    # A head that ends inside a chunk leaves part of that chunk unpacked.
+    assert (unpacked < samples) == (head % chunk != 0)
 
 
 @pytest.mark.parametrize("damage", ["not_pod5", "truncated", "bad_chunk"])

@@ -25,7 +25,7 @@ from deepbinner_tpu_torch.cli import classify as cli
 from deepbinner_tpu_torch.cli.main import get_arguments
 from deepbinner_tpu_torch.cli.main import main as port_main
 from deepbinner_tpu_torch.models.network import unit_scopes
-from deepbinner_tpu_torch.runner import executor, spans
+from deepbinner_tpu_torch.runner import executor, mp_reader, spans
 from deepbinner_tpu_torch.utils import pod5, simulate
 from deepbinner_tpu_torch.utils.fast5 import find_signal_files
 
@@ -245,8 +245,7 @@ def test_profile_dir_trace_holds_the_programs_spans(runner, corpus, tmp_path,
 def test_read_pod5_times_change_no_read(corpus):
     _directory, files, _truth = corpus
     for path in files:
-        times = dict.fromkeys(("open", "tables", "zstd", "unpack", "bytes",
-                               "chunks"), 0)
+        times = dict.fromkeys(mp_reader._POD5_TIMES, 0)
         plain = pod5.read_pod5(path, 2048, 2048)
         timed = pod5.read_pod5(path, 2048, 2048, times)
         assert [r for r, _s in timed] == [r for r, _s in plain]
@@ -255,6 +254,54 @@ def test_read_pod5_times_change_no_read(corpus):
         assert times["bytes"] == os.path.getsize(path)
         assert times["chunks"] >= len(plain)
         assert min(times[k] for k in ("open", "tables", "zstd", "unpack")) > 0
+        assert 0 < times["unpacked"] <= times["samples"]
+
+
+@pytest.mark.parametrize("head,tail", [(0, 0), (100, 0), (100, 100)])
+def test_read_pod5_counts_the_samples_it_unpacks(corpus, head, tail):
+    """``samples``: those of the chunks decompressed; ``unpacked``: those
+    unpacked.  Equal with no head (prep's whole decode) and where the tail
+    needs each read's one chunk; the head alone unpacks each read's
+    first ``head``."""
+    _directory, files, _truth = corpus
+    for path in files:
+        times = dict.fromkeys(mp_reader._POD5_TIMES, 0)
+        timed = pod5.read_pod5(path, head, tail, times)
+        plain = pod5.read_pod5(path, head, tail)
+        for (r, a), (r2, b) in zip(plain, timed, strict=True):
+            assert r == r2 and np.array_equal(a, b)
+        lengths = [s.size for _r, s in pod5.read_pod5(path)]
+        assert max(lengths) <= pod5.SIGNAL_CHUNK_SIZE  # one chunk a read
+        assert times["samples"] == sum(lengths)
+        want = (sum(min(head, n) for n in lengths) if head and not tail
+                else sum(lengths))
+        assert times["unpacked"] == want
+        if head and not tail:
+            assert want < sum(lengths)
+
+
+def test_read_file_spans_carry_samples_and_unpacked(runner, corpus):
+    """The pool's ``read/file`` spans carry the two counts, unpacked no
+    more than decompressed, summing to what read_pod5 counts at the
+    pool's head and tail; the reads are those of a run without the
+    recorder."""
+    _directory, files, _truth = corpus
+    off, _ = _pass(runner, files)
+    on, _batches, rec = _recorded(runner, files)
+    assert sorted(on) == sorted(off)
+    for read_id, result in off.items():
+        assert np.array_equal(result.start_probs, on[read_id].start_probs)
+    files_read = [s[6] for s in rec.window() if s[0] == "read/file"]
+    assert len(files_read) == len(files)
+    for args in files_read:
+        assert 0 < args["unpacked"] <= args["samples"]
+    spec = runner.pool.batch_spec
+    head = spec.trim.raw_size if spec.trim is not None else spec.buffer_size
+    want = dict.fromkeys(mp_reader._POD5_TIMES, 0)
+    for path in files:
+        pod5.read_pod5(path, head, head if spec.dual else 0, want)
+    for key in ("samples", "unpacked"):
+        assert sum(args[key] for args in files_read) == want[key]
 
 
 class _Flag:
