@@ -12,8 +12,11 @@ one of two sources:
   end_len, release)`` 6-tuples).
 
 Batches are padded to one fixed size.  CUDA launches are asynchronous, so
-while the card works on batch i the host builds batch i+1; a small
-in-flight deque blocks only on the oldest result's copy back to the host.
+while the card works on batch i the host builds batch i+1.  Each batch's
+call table is copied back to pinned host memory by a copy enqueued right
+behind its own step, with an event recorded after the copy; a small
+in-flight deque waits on the oldest batch's event alone, so the card runs
+the steps enqueued after it while the host turns that batch into rows.
 A shared-memory slot goes back to the workers only once the CUDA events
 recorded right after its batch's upload, one on each of the program's
 devices, have all completed.
@@ -213,15 +216,33 @@ def _no_clock() -> float:
     return 0.0
 
 
+def _copy_back(packed: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
+    """``packed`` on the host, and on a CUDA device the event that marks the
+    copy done: the copy goes into pinned memory (a non-blocking copy to the
+    CPU allocates it) on the current stream of ``packed``'s device, behind
+    the step that made it.  A CPU tensor is its own host table."""
+    if packed.device.type != "cuda":
+        return packed, None
+    with torch.cuda.device(packed.device):
+        host = packed.to("cpu", non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+    return host, copied
+
+
 @dataclasses.dataclass
 class _Pending:
-    """One dispatched batch: its ids, its packed result on the device, and
-    for a shared-memory batch the slot's release and the upload's events
-    (one per device the batch's rows went to); ``key`` is the batch's
-    identifier where its reader worker gave one (:mod:`.spans`)."""
+    """One dispatched batch: its ids, its packed result on the host, whole
+    once ``copied`` has completed (no event on the CPU, where it is whole
+    already), and for a shared-memory batch the slot's release and the
+    upload's events (one per device the batch's rows went to); ``key`` is
+    the batch's identifier where its reader worker gave one
+    (:mod:`.spans`)."""
 
     ids: List[str]
-    packed: torch.Tensor
+    host: torch.Tensor
+    copied: Optional["torch.cuda.Event"] = None
     release: Optional[Callable[[], None]] = None
     uploaded: Sequence["torch.cuda.Event"] = ()
     key: Optional[tuple] = None
@@ -255,12 +276,17 @@ def classify_batches(
     identifier, where the pool's worker recorded spans.  A slot is released once the CUDA events
     recorded right after its upload, on each of the program's devices, have
     all completed: checked after every dispatch, and at the latest when the
-    batch's result comes back to the host (the copy back is ordered after
-    the uploads).
+    batch's result is back on the host (its copy back follows its own step,
+    which follows its uploads).
 
-    Up to ``in_flight`` batches are enqueued on the device before the
-    oldest result is copied back.  ``prefetch`` > 0 pulls ``batches`` on a
-    feeder thread, so host batch assembly overlaps the wait for results.
+    Each batch's packed call table is copied to pinned host memory on the
+    stream of the (first) device, right behind the batch's own step, and an
+    event is recorded after the copy.  Up to ``in_flight`` batches are
+    enqueued on the device before the host waits on the oldest one's event:
+    that wait ends when the oldest batch is back, not when the newest step
+    is done, so the device runs the newer steps while the host makes the
+    oldest batch's rows.  ``prefetch`` > 0 pulls ``batches`` on a feeder
+    thread, so host batch assembly overlaps the wait for results.
     On exit, normal or not, the slots of pending batches are released once
     their uploads are done, the feeder is stopped and joined and the
     ``batches`` generator is closed.
@@ -268,8 +294,9 @@ def classify_batches(
     While the program's spans record, each batch gets, on the main thread,
     ``stream/feed_wait`` (blocked on the feeder), ``stream/upload``
     (``program.upload`` and ``upload_events``), ``stream/enqueue``
-    (``call_packed``), ``stream/release`` (the slot-release checks),
-    ``stream/copy_back`` (the wait for the device and the copy back) and
+    (``call_packed`` and the copy back's enqueue), ``stream/release`` (the
+    slot-release checks), ``stream/copy_back`` (the wait for the batch's
+    copy back and its unpacking) and
     ``stream/results`` (the ``ReadResult`` rows, from the first ``tolist`` to
     the consumer's return from the last; its ``consumer_s`` is the time
     the consumer held the thread between results), and on the feeder
@@ -328,7 +355,9 @@ def classify_batches(
         entry = pending.popleft()
         now = spans.clock if rec is not None else _no_clock
         copying = now()
-        out = unpack_call_table(entry.packed)  # ONE device→host copy per batch
+        if entry.copied is not None:
+            entry.copied.synchronize()  # this batch's copy, not a later step
+        out = unpack_call_table(entry.host)
         entry.release_if_uploaded(wait=True)
         copied = now()
         calls = out.calls.tolist()
@@ -397,8 +426,8 @@ def classify_batches(
             uploaded = program.upload(start, start_len, end, end_len)
             events = program.upload_events() if release is not None else ()
             enqueuing = now()
-            pending.append(_Pending(ids, program.call_packed(*uploaded),
-                                    release, events, key))
+            host, copied = _copy_back(program.call_packed(*uploaded))
+            pending.append(_Pending(ids, host, copied, release, events, key))
             enqueued = now()
             stats.batches += 1
             for entry in pending:

@@ -45,7 +45,9 @@ from deepbinner_tpu_torch.ops.trunk_kernel import (
     trunk_segment,
     trunk_segment_reference,
 )
+from deepbinner_tpu_torch.runner import executor
 from deepbinner_tpu_torch.runner.executor import (
+    MIN_SHM_SLOTS,
     batch_spec_for,
     build_batch,
     classify_batches,
@@ -57,6 +59,7 @@ from deepbinner_tpu_torch.runner.pipeline import (
     ClassifyConfig,
     ClassifyProgram,
     full_f32,
+    unpack_call_table,
 )
 from deepbinner_tpu_torch.utils import simulate
 
@@ -562,6 +565,86 @@ def test_released_slots_overwritten_at_once_give_the_same_calls(cuda_device):
         assert (g.call, g.start_call, g.end_call) == (w.call, w.start_call,
                                                       w.end_call)
         np.testing.assert_array_equal(g.start_probs, w.start_probs)
+
+
+# About 50 ms of the card's clock (1.98 GHz at most on an H100).
+SLEEP_CYCLES = 100_000_000
+
+
+@pytest.mark.parametrize("layout", ["single", "dual", "split"])
+def test_each_copy_back_waits_for_its_own_batch_alone(cuda_device, monkeypatch,
+                                                      layout):
+    """Each batch's step sleeps about 50 ms on the card before it runs, and
+    the batches come through the reader pool's pinned slots.  When batch 0's
+    first row is yielded, batch 1's step has not completed; every table
+    ``unpack_call_table`` gets is pinned host memory; and the rows are
+    bit-identical to a synchronous ``unpack_call_table(call_packed(...))``
+    of each batch: one model, two, and one model over two grid rows (the
+    copy made from the gathered table)."""
+    dual = layout == "dual"
+    model, net_cfg, _meta = load_model(TINY_MODEL)
+    pre = PreprocessConfig(scan_size=768, window=net_cfg.input_length,
+                           stride=net_cfg.input_length // 2, trim_scan=512,
+                           host_trim=True, wire="int8")
+    placement = ({"devices": [cuda_device] * 2} if layout == "split"
+                 else {"device": cuda_device})
+    program = ClassifyProgram(model, ClassifyConfig(pre, CallingConfig(),
+                                                    dual_model=dual),
+                              end_model=model if dual else None, **placement)
+    spec = batch_spec_for(pre, 4, dual)
+    reads = _tiny_program_reads() * 2
+    starts = range(0, len(reads), 4)
+    want = []
+    for i in starts:
+        _ids, *arrays = build_batch_arrays(reads[i:i + 4], spec)
+        want.append(unpack_call_table(program.call_packed(*arrays)))
+
+    call = program.call_packed
+    stepped = []
+
+    def slow(*arrays):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        packed = call(*arrays)
+        event = torch.cuda.Event()
+        event.record()
+        stepped.append(event)
+        return packed
+
+    unpack = executor.unpack_call_table
+    handed = []
+
+    def recorded(host):
+        handed.append((host.device.type, host.is_pinned()))
+        return unpack(host)
+
+    monkeypatch.setattr(program, "call_packed", slow)
+    monkeypatch.setattr(executor, "unpack_call_table", recorded)
+    ring = _ShmRing(mp.get_context("spawn"), spec, MIN_SHM_SLOTS, pin=True)
+
+    def batches():
+        for i in starts:
+            slot = ring.free.get(timeout=60)
+            views = ring.views(ring.slots[slot])
+            ids, *_arrays = build_batch_arrays(reads[i:i + 4], spec, out=views)
+            yield (ids, *views, functools.partial(ring.free.put, slot))
+
+    got, done_at_first_row = [], None
+    try:
+        for result in classify_batches(program, batches()):
+            if not got:
+                done_at_first_row = [event.query() for event in stepped]
+            got.append(result)
+    finally:
+        ring.close()
+    assert done_at_first_row == [True, False]
+    assert handed == [("cpu", True)] * len(want)
+    assert [r.read_id for r in got] == [read_id for read_id, _s in reads]
+    for k, result in enumerate(got):
+        table, row = want[k // 4], k % 4
+        assert (result.call, result.start_call, result.end_call) == (
+            table.calls[row], table.start_calls[row], table.end_calls[row])
+        np.testing.assert_array_equal(result.start_probs, table.start_probs[row])
+        np.testing.assert_array_equal(result.end_probs, table.end_probs[row])
 
 
 def test_realtime_poll_on_the_card_matches_classify(cuda_device, tmp_path,

@@ -173,6 +173,42 @@ def test_abandoned_pass_stops_feeder_and_closes_source(weights, reads):
     assert sorted(r.read_id for r in again) == sorted(r for r, _s in reads)
 
 
+@pytest.mark.parametrize("in_flight", [1, 2, 3])
+def test_stream_unpacks_each_batch_once_in_order_on_a_host_tensor(
+        weights, reads, monkeypatch, in_flight):
+    """classify_batches hands ``executor.unpack_call_table`` one host tensor
+    a batch, in the batches' order, and its rows are ``program(...)``'s
+    for each batch, whatever the in-flight depth."""
+    _jax_program, program = _both_programs(
+        weights, True, True, "int8", dict(min_score=0.0, score_diff=0.0))
+    batches = [executor.build_batch(reads[i:i + 4], program.cfg.preprocess, 4,
+                                    True) for i in range(0, len(reads), 4)]
+    unpack = executor.unpack_call_table
+    handed = []
+
+    def recorded(host):
+        handed.append(host)
+        return unpack(host)
+
+    monkeypatch.setattr(executor, "unpack_call_table", recorded)
+    got = list(executor.classify_batches(program, iter(batches),
+                                         in_flight=in_flight))
+    assert len(handed) == len(batches) == 4
+    assert [r.read_id for r in got] == [read_id for read_id, _s in reads]
+    for k, (host, batch) in enumerate(zip(handed, batches)):
+        assert isinstance(host, torch.Tensor) and host.device.type == "cpu"
+        table = program(*batch[1:])
+        np.testing.assert_array_equal(host.numpy(),
+                                      pack_call_table(table).numpy())
+        for row, result in enumerate(got[4 * k: 4 * k + 4]):
+            assert (result.call, result.start_call, result.end_call) == (
+                table.calls[row], table.start_calls[row], table.end_calls[row])
+            np.testing.assert_array_equal(result.start_probs,
+                                          table.start_probs[row].numpy())
+            np.testing.assert_array_equal(result.end_probs,
+                                          table.end_probs[row].numpy())
+
+
 def test_iter_signals_stops_readers_when_closed(tmp_path):
     files = [str(tmp_path / f"f{i}") for i in range(20)]
 
