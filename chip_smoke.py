@@ -17,10 +17,10 @@ one JSON line per phase:
 2. ``kernel_unit`` / ``kernels``: the fused ConvBNReLU kernel (K1) at each
    of the 15 unit geometries of ``EXP-NBD103_read_starts.dbt`` at N = 2816
    windows (one 256-read batch), with its plan (``ops/conv_kernel.plan_unit``:
-   output-channel tile, row tile, threads, inner loop, shared memory), held
-   against its plain PyTorch version at atol and rtol 1e-4 and against
-   itself (bit-identical rerun), with the kernel's, the "generic" loop's on
-   the same tiles, the plain version's and a cuDNN yardstick's
+   output-channel tile, row tile, threads, loop, shared memory, stages and
+   blocks per SM), held against its plain PyTorch version at atol and rtol
+   1e-4 and against itself (bit-identical rerun), with the kernel's, the
+   "generic" loop's, the plain version's and a cuDNN yardstick's
    (``F.conv1d`` + affine + ReLU + pool, TF32 off) times and the unit's
    bound: the larger of its bytes over 3.35 TB/s and its FP32 operations
    over 67 TFLOP/s (H100 SXM data sheet).  The ``env`` line carries each
@@ -288,6 +288,7 @@ def phase_kernels(device, n: int = WINDOWS, line: str = "kernel_unit") -> dict:
     from deepbinner_tpu_torch.ops.conv_kernel import (
         conv1d_bn_relu_reference,
         fused_conv1d_bn_relu,
+        generic_plan,
         launch_planned,
         plan_unit,
     )
@@ -313,8 +314,8 @@ def phase_kernels(device, n: int = WINDOWS, line: str = "kernel_unit") -> dict:
                                      dilation=dilation, pool=pool)
         want = conv1d_bn_relu_reference(x, kernel, scale, bias,
                                          dilation=dilation, pool=pool)
-        # The "generic" loop on the same tiles: the window loop's yardstick.
-        generic = plan._replace(path="generic")
+        # The "generic" loop on the same tiles: the pipelined loop's yardstick.
+        generic = generic_plan(c_in, c_out, taps, dilation, length)
         got_generic = launch_planned(x, kernel, scale, bias, generic,
                                      dilation=dilation, pool=pool)
         torch.cuda.synchronize()
@@ -360,6 +361,7 @@ def phase_kernels(device, n: int = WINDOWS, line: str = "kernel_unit") -> dict:
              c_out=c_out, taps=taps, dilation=dilation, pool=pool,
              co_tile=plan.co_tile, row_tile=plan.row_tile, path=plan.path,
              threads=plan.threads, smem_bytes=plan.smem_bytes,
+             stages=plan.stages, blocks_per_sm=plan.blocks_per_sm,
              max_abs_err=err, bit_identical=True, ms=ms,
              generic_ms=generic_ms, generic_max_abs_err=generic_err,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,

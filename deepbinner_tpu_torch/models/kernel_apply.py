@@ -51,6 +51,7 @@ from deepbinner_tpu_torch.models.network import (
 from deepbinner_tpu_torch.ops.conv_kernel import (
     conv1d_bn_relu_reference,
     fused_conv1d_bn_relu,
+    plan_unit,
 )
 from deepbinner_tpu_torch.ops.trunk_kernel import (
     PackedTrunk,
@@ -163,7 +164,9 @@ def apply_inference_kernels(net: FoldedNet, windows: torch.Tensor) -> torch.Tens
 
     While the program's spans record, the counter ``k1/units`` gets each
     unit kernel launch's ``(scope, (N, L, C_in, C_out, taps, dilation,
-    pool))``, in launch order."""
+    pool), loop)``, in launch order, where ``loop`` is the path of the
+    kernel's plan (:func:`~deepbinner_tpu_torch.ops.conv_kernel.plan_unit`):
+    "pipelined" or "generic"."""
     launches = spans.counter("k1/units")
 
     def unit(scope, x, dilation, pool):
@@ -171,10 +174,11 @@ def apply_inference_kernels(net: FoldedNet, windows: torch.Tensor) -> torch.Tens
                                     pool=pool)
 
     def counted(scope, x, dilation, pool):
-        kernel = net.units[scope][0]
+        taps, c_in, c_out = net.units[scope][0].shape
+        plan = plan_unit(c_in, c_out, taps, dilation, x.shape[1])
         launches.append((spans.clock(), (scope, (
-            x.shape[0], x.shape[1], x.shape[2], kernel.shape[2],
-            kernel.shape[0], dilation, pool))))
+            x.shape[0], x.shape[1], c_in, c_out, taps, dilation, pool),
+            plan.path)))
         return unit(scope, x, dilation, pool)
 
     return _demuxnet(net, windows, unit if launches is None else counted)

@@ -33,27 +33,80 @@ LAUNCHES = 0
 _KERNEL = "conv1d_bn_relu"
 
 # The kernel's template instances: the row tile built for each output-channel
-# tile (``DEEPBINNER_CONV_TILES`` in the source), and the (taps, dilation)
-# pairs with a "window" loop.  Every other pair runs the "generic" loop.
+# tile and loop (``DEEPBINNER_CONV_TILES`` and ``DEEPBINNER_PIPELINED_TILES``
+# in the source), and the (taps, dilation) pairs with a "pipelined" loop.
+# Every other pair runs the "generic" loop.
 ROW_TILES = {32: 256, 48: 128, 64: 128}
+PIPELINED_ROW_TILES = {32: 512, 48: 256, 64: 256}
 CO_TILES = tuple(ROW_TILES)
 WINDOW_TAPS = frozenset({(1, 1), (3, 1), (3, 2), (3, 4)})
-CI_CHUNK = 32           # input channels staged per pass (kCiChunk)
-ROWS_PER_THREAD = 8     # kRows; a thread's rows share a window when L % 8 == 0
+ROWS_PER_THREAD = 8     # kRows; 8 rows share a window when L % 8 == 0
+PIPELINED_ROWS = 16     # kPipeRows: a "pipelined" thread's rows, 8-row groups
 COLS_PER_THREAD = 4     # kCols: one float4 of output channels
+CI_CHUNK = 32           # "generic": input channels staged per pass (kCiChunk)
+STAGE_CHANNELS = 16     # "pipelined": input channels per stage (kStageChannels)
+STAGES = 2              # "pipelined": stages in the ring (kStages)
+GROUP_PAD = 4           # "pipelined": floats after every 8 staged rows (kGroupPad)
+PIPELINED_BLOCKS = 2    # "pipelined": most blocks per SM (kPipelinedBlocks)
 SMEM_LIMIT = 232_448    # dynamic shared memory one block may take on an H100
+SM_SMEM = 233_472       # shared memory of one H100 SM
+BLOCK_SMEM_RESERVED = 1_024  # what the card keeps of it for each block
 _ERRORS = {-1: "no kernel instance was built for this plan",
-           -2: "the plan's threads, shared memory or path do not fit its tiles"}
+           -2: "the plan's threads, shared memory, stages or path do not "
+               "fit its tiles"}
 
 
 class UnitPlan(NamedTuple):
-    """What one launch of the kernel runs: its tiles, block and inner loop."""
+    """What one launch of the kernel runs: its tiles, block, loop and grid."""
 
-    co_tile: int     # output channels per block
-    row_tile: int    # flattened (N·L) rows per block
-    threads: int     # threads per block
-    path: str        # "window" or "generic"
-    smem_bytes: int  # dynamic shared memory per block
+    co_tile: int        # output channels per block
+    row_tile: int       # flattened (N·L) rows per tile
+    threads: int        # threads per block
+    path: str           # "pipelined" or "generic"
+    smem_bytes: int     # dynamic shared memory per block
+    stages: int         # stages of x in flight ("generic": 1)
+    blocks_per_sm: int  # the persistent grid's occupancy ("generic": 0,
+                        # a block per row tile)
+
+
+def _tiles(c_out: int, pipelined: bool) -> Tuple[int, int, int]:
+    """(co_tile, row_tile, threads): the output-channel tile of ``CO_TILES``
+    that computes the fewest columns, ``ceil(c_out / t) · t``, the widest
+    on a tie, with the loop's row tile and threads."""
+    co_tile = min(CO_TILES, key=lambda t: (-(-c_out // t) * t, -t))
+    if pipelined:
+        row_tile, rows = PIPELINED_ROW_TILES[co_tile], PIPELINED_ROWS
+    else:
+        row_tile, rows = ROW_TILES[co_tile], ROWS_PER_THREAD
+    return co_tile, row_tile, row_tile // rows * (co_tile // COLS_PER_THREAD)
+
+
+def _check_plan_geometry(c_in, c_out, taps, dilation, length) -> None:
+    if min(c_in, c_out, taps, dilation, length) < 1:
+        raise ValueError(f"no plan for c_in={c_in}, c_out={c_out}, "
+                         f"taps={taps}, dilation={dilation}, length={length}")
+
+
+def stage_floats(rows: int) -> int:
+    """Floats of one "pipelined" stage of ``rows`` staged rows: each row's
+    ``STAGE_CHANNELS`` and ``GROUP_PAD`` after every 8 rows."""
+    return (rows * STAGE_CHANNELS
+            + -(-rows // ROWS_PER_THREAD) * GROUP_PAD)
+
+
+def generic_plan(c_in: int, c_out: int, taps: int, dilation: int,
+                 length: int) -> UnitPlan:
+    """The "generic" loop's plan: a block per row tile and column tile,
+    each staging 32 input channels and their weights at a time."""
+    _check_plan_geometry(c_in, c_out, taps, dilation, length)
+    co_tile, row_tile, threads = _tiles(c_out, pipelined=False)
+    halo = (taps - 1) // 2 * dilation
+    smem = 4 * (taps * CI_CHUNK * co_tile
+                + (row_tile + 2 * halo) * (CI_CHUNK + 1))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{taps} taps at dilation {dilation} need {smem} B "
+                         f"of shared memory per block, over {SMEM_LIMIT}")
+    return UnitPlan(co_tile, row_tile, threads, "generic", smem, 1, 0)
 
 
 def plan_unit(c_in: int, c_out: int, taps: int, dilation: int,
@@ -63,25 +116,26 @@ def plan_unit(c_in: int, c_out: int, taps: int, dilation: int,
     The output-channel tile is the one of ``CO_TILES`` that computes the
     fewest columns, ``ceil(c_out / t) · t``, the widest on a tie: no column
     is wasted at any flagship unit (48, 64, 96 = 2 × 48, 32, 128 = 2 × 64).
-    C_in does not change the plan: the kernel stages it 32 channels at a
-    time whatever its size.  Raises ``ValueError`` on a geometry the kernel
-    cannot take.
+    A (taps, dilation) pair of ``WINDOW_TAPS`` at a length that is a
+    multiple of 8 takes the "pipelined" loop: its block holds the column
+    tile's weights for all of C_in and ``STAGES`` stages of
+    ``STAGE_CHANNELS`` channels of a row tile's rows, and the grid is sized
+    for as many blocks per SM as that shared memory lets the SM hold, up to
+    ``PIPELINED_BLOCKS``.  Every other geometry, and one whose weights and
+    stages do not fit a block, takes :func:`generic_plan`.  Raises
+    ``ValueError`` on a geometry the kernel cannot take.
     """
-    if min(c_in, c_out, taps, dilation, length) < 1:
-        raise ValueError(f"no plan for c_in={c_in}, c_out={c_out}, "
-                         f"taps={taps}, dilation={dilation}, length={length}")
-    co_tile = min(CO_TILES, key=lambda t: (-(-c_out // t) * t, -t))
-    row_tile = ROW_TILES[co_tile]
-    threads = row_tile // ROWS_PER_THREAD * (co_tile // COLS_PER_THREAD)
-    window = (taps, dilation) in WINDOW_TAPS and length % ROWS_PER_THREAD == 0
+    _check_plan_geometry(c_in, c_out, taps, dilation, length)
+    co_tile, row_tile, threads = _tiles(c_out, pipelined=True)
     halo = (taps - 1) // 2 * dilation
-    smem = 4 * (taps * CI_CHUNK * co_tile
-                + (row_tile + 2 * halo) * (CI_CHUNK + 1))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{taps} taps at dilation {dilation} need {smem} B "
-                         f"of shared memory per block, over {SMEM_LIMIT}")
-    return UnitPlan(co_tile, row_tile, threads,
-                    "window" if window else "generic", smem)
+    smem = 4 * (taps * c_in * co_tile
+                + STAGES * stage_floats(row_tile + 2 * halo))
+    if ((taps, dilation) not in WINDOW_TAPS
+            or length % ROWS_PER_THREAD != 0 or smem > SMEM_LIMIT):
+        return generic_plan(c_in, c_out, taps, dilation, length)
+    blocks = min(PIPELINED_BLOCKS, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
+    return UnitPlan(co_tile, row_tile, threads, "pipelined", smem, STAGES,
+                    blocks)
 
 
 def fold_batchnorm(
@@ -147,8 +201,8 @@ def _launcher():
     fn = kernel_build.load(_KERNEL).deepbinner_conv1d_bn_relu
     # Every pointer and the stream as c_void_p: a bare Python int would be
     # passed as a 32-bit int and cut the address.
-    # 8 ints of geometry and 5 of the plan; a stale count would pass garbage.
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    # 8 ints of geometry and 7 of the plan; a stale count would pass garbage.
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -197,7 +251,7 @@ def launch_planned(
     """Launch the kernel on CUDA tensors with a given ``plan``.
 
     :func:`fused_conv1d_bn_relu` passes :func:`plan_unit`'s plan; a caller
-    that times one inner loop against the other passes its own.  A plan the
+    that times one loop against the other passes :func:`generic_plan`'s.  A plan the
     library was not built for raises ``RuntimeError``: the C side launches
     nothing and picks no other plan.
     """
@@ -222,8 +276,8 @@ def launch_planned(
         rc = launch(x.data_ptr(), kernel.data_ptr(), scale.data_ptr(),
                     bias.data_ptr(), out.data_ptr(), n, length, c_in, c_out,
                     taps, dilation, int(relu), int(pool), plan.co_tile,
-                    plan.row_tile, plan.threads, int(plan.path == "window"),
-                    plan.smem_bytes, stream)
+                    plan.row_tile, plan.threads, int(plan.path == "pipelined"),
+                    plan.smem_bytes, plan.stages, plan.blocks_per_sm, stream)
     if rc != 0:
         reason = _ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"{_KERNEL} launch failed for {plan}: {reason}")

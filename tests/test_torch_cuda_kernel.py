@@ -34,6 +34,7 @@ from deepbinner_tpu_torch.ops.conv_kernel import (
     UnitPlan,
     conv1d_bn_relu_reference,
     fused_conv1d_bn_relu,
+    generic_plan,
     launch_planned,
     plan_unit,
 )
@@ -132,25 +133,106 @@ def test_generic_loop_matches_plain_where_the_window_loop_runs(
         cuda_device, taps, dilation, c_in, c_out, length):
     arrays = _inputs(7, 5, length, c_in, c_out, taps, cuda_device)
     plan = plan_unit(c_in, c_out, taps, dilation, length)
-    assert plan.path == "window"
-    got = launch_planned(*arrays, plan._replace(path="generic"),
+    assert plan.path == "pipelined"
+    got = launch_planned(*arrays,
+                         generic_plan(c_in, c_out, taps, dilation, length),
                          dilation=dilation, pool=True)
     want = conv1d_bn_relu_reference(*arrays, dilation=dilation, pool=True)
     torch.testing.assert_close(got, want, **TOL)
 
 
+# (L, C_in, C_out, taps, dilation, pool) of the flagship start model's 15
+# units (test_torch_conv_plan.FLAGSHIP's).
+FLAGSHIP_UNITS = [
+    (1024, 1, 48, 3, 1, False), (1024, 48, 48, 3, 1, True),
+    (512, 48, 64, 3, 1, False), (512, 64, 64, 3, 1, True),
+    (256, 64, 96, 3, 1, False), (256, 96, 96, 3, 1, True),
+    (128, 96, 32, 1, 1, True), (128, 96, 32, 3, 1, True),
+    (128, 96, 32, 3, 2, True), (128, 96, 32, 1, 1, True),
+    (64, 128, 32, 1, 1, True), (64, 128, 32, 3, 1, True),
+    (64, 128, 32, 3, 4, True), (64, 128, 32, 1, 1, True),
+    (32, 128, 128, 3, 1, False),
+]
+FLAGSHIP_IDS = ["stem1", "stem2", "block0_conv1", "block0_conv2",
+                "block1_conv1", "block1_conv2", "inception0/branch1x1",
+                "inception0/branch3", "inception0/branch_dilated",
+                "inception0/branch_pool", "inception1/branch1x1",
+                "inception1/branch3", "inception1/branch_dilated",
+                "inception1/branch_pool", "head_conv"]
+
+
+def _unit_inputs(seed, n, length, c_in, c_out, taps, device):
+    """Inputs of one unit with weights scaled to variance 1/fan_in."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, length, c_in), generator=gen, device=device)
+    w = torch.randn((taps, c_in, c_out), generator=gen,
+                    device=device) / (taps * c_in) ** 0.5
+    scale = torch.rand((c_out,), generator=gen, device=device) + 0.5
+    bias = torch.randn((c_out,), generator=gen, device=device)
+    return [x, w, scale, bias]
+
+
+# 2816 windows: one 256-read batch.  1409: at every flagship unit the row
+# tiles do not divide evenly among the persistent blocks of an H100's 132
+# SMs, and at L <= 128 the last row tile is ragged.
+@pytest.mark.parametrize("n", [2816, 1409])
+@pytest.mark.parametrize("length,c_in,c_out,taps,dilation,pool",
+                         FLAGSHIP_UNITS, ids=FLAGSHIP_IDS)
+def test_pipelined_loop_matches_plain_at_the_flagship_units(
+        cuda_device, n, length, c_in, c_out, taps, dilation, pool):
+    """The pipelined loop against the plain version, and against itself on
+    a rerun, at each flagship unit's geometry."""
+    arrays = _unit_inputs(length + c_in + c_out, n, length, c_in, c_out,
+                          taps, cuda_device)
+    plan = plan_unit(c_in, c_out, taps, dilation, length)
+    assert plan.path == "pipelined"
+    before = conv_kernel.LAUNCHES
+    got = fused_conv1d_bn_relu(*arrays, dilation=dilation, pool=pool)
+    again = fused_conv1d_bn_relu(*arrays, dilation=dilation, pool=pool)
+    assert conv_kernel.LAUNCHES == before + 2
+    want = conv1d_bn_relu_reference(*arrays, dilation=dilation, pool=pool)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n", [2816, 1409])
+@pytest.mark.parametrize("length,c_in", [(128, 96), (64, 128)])
+def test_pipelined_loop_equals_generic_at_the_one_tap_units(
+        cuda_device, n, length, c_in):
+    """branch1x1 and branch_pool: with one tap both loops sum each output
+    over C_in ascending, one fmaf at a time, so they agree bit for bit."""
+    arrays = _unit_inputs(c_in, n, length, c_in, 32, 1, cuda_device)
+    plan = plan_unit(c_in, 32, 1, 1, length)
+    assert plan.path == "pipelined"
+    got = launch_planned(*arrays, plan, pool=True)
+    generic = launch_planned(*arrays, generic_plan(c_in, 32, 1, 1, length),
+                             pool=True)
+    assert torch.equal(got, generic)
+
+
+_PIPELINED_48 = 4 * (3 * 8 * 48 + 2 * (130 * 32 + 17 * 4))  # C_in 8
+_PIPELINED_5_TAPS = 4 * (5 * 8 * 48 + 2 * (132 * 32 + 17 * 4))
+_GENERIC_48 = 4 * (3 * 32 * 48 + 130 * 33)
+
+
 @pytest.mark.parametrize("plan", [
-    UnitPlan(40, 128, 160, "generic", 4 * (3 * 32 * 40 + 130 * 33)),  # no tile
-    UnitPlan(48, 64, 96, "generic", 4 * (3 * 32 * 48 + 66 * 33)),     # no rows
-    UnitPlan(48, 128, 256, "generic", 4 * (3 * 32 * 48 + 130 * 33)),  # threads
-    UnitPlan(48, 128, 192, "generic", 1024),                         # smem
-    UnitPlan(48, 128, 192, "window", 4 * (5 * 32 * 48 + 132 * 33)),  # 5 taps
+    UnitPlan(40, 128, 160, "generic", 4 * (3 * 32 * 40 + 130 * 33), 1, 0),  # no tile
+    UnitPlan(48, 64, 96, "generic", 4 * (3 * 32 * 48 + 66 * 33), 1, 0),     # no rows
+    UnitPlan(48, 128, 256, "generic", _GENERIC_48, 1, 0),                   # threads
+    UnitPlan(48, 128, 192, "generic", 1024, 1, 0),                          # smem
+    UnitPlan(48, 128, 192, "pipelined", _PIPELINED_5_TAPS, 2, 3),          # 5 taps
+    UnitPlan(48, 128, 192, "pipelined", _PIPELINED_48, 3, 3),               # stages
+    UnitPlan(48, 128, 192, "pipelined", _PIPELINED_48, 2, 0),               # no grid
+    UnitPlan(48, 128, 192, "pipelined", _PIPELINED_48, 2, 4),               # occupancy
+    UnitPlan(48, 128, 192, "pipelined", _GENERIC_48, 2, 3),                 # smem
+    UnitPlan(48, 128, 192, "generic", _GENERIC_48, 2, 0),                   # stages
+    UnitPlan(48, 128, 192, "generic", _GENERIC_48, 1, 3),                   # grid
 ])
 def test_kernel_raises_for_a_plan_it_was_not_built_for(cuda_device,
                                                        monkeypatch, plan):
     """The C side returns an error and launches nothing; the wrapper raises
     and picks no other plan."""
-    taps = 5 if plan.path == "window" else 3
+    taps = 5 if plan.smem_bytes == _PIPELINED_5_TAPS else 3
     arrays = _inputs(3, 2, 16, 8, 48, taps, cuda_device)
     monkeypatch.setattr(conv_kernel, "plan_unit", lambda *args: plan)
     before = conv_kernel.LAUNCHES

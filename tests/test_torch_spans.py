@@ -142,9 +142,11 @@ def test_counters_hold_each_call_and_each_unit_launch(runner, corpus):
     times = [at for at, _value in rec.counters["k1/units"]]
     assert times == sorted(times) and rec.start <= times[0] <= times[-1] <= rec.end
     launches = [value for _at, value in rec.counters["k1/units"]]
-    assert [scope for scope, _shape in launches] == scopes * ends * batches
-    windows = {shape[0] for _scope, shape in launches}
+    assert [scope for scope, _shape, _loop in launches] == scopes * ends * batches
+    windows = {shape[0] for _scope, shape, _loop in launches}
     assert len(windows) == 1 and windows.pop() % BATCH == 0
+    # Every unit of the tiny model's geometry takes the pipelined loop.
+    assert {loop for _scope, _shape, loop in launches} == {"pipelined"}
     rows = [value for _at, value in rec.counters["call_packed/rows"]]
     assert rows == [BATCH] * batches
     # Each call's rows are counted inside its stream/enqueue span.
