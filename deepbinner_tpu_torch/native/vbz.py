@@ -27,8 +27,8 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = build.load("vbz_decode")
             lib.db_vbz_unpack.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, ctypes.POINTER(ctypes.c_int16),
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p,
             ]
             lib.db_vbz_unpack.restype = ctypes.c_int64
             _lib = lib
@@ -46,10 +46,11 @@ def available() -> bool:
     return True
 
 
-def unpack(raw: bytes, count: int, keep: Optional[int] = None) -> np.ndarray:
+def unpack(raw, count: int, keep: Optional[int] = None) -> np.ndarray:
     """svb16-unpack + zigzag + wrapping-int16 prefix sum, one C pass.
 
-    ``raw`` is the zstd-decompressed vbz payload of ``count`` samples;
+    ``raw`` (any buffer, read by address: ``zstd.decompress``'s view too)
+    is the zstd-decompressed vbz payload of ``count`` samples;
     returns its first ``keep`` (default: all ``count``) as an int16 signal,
     equal to the same prefix of the whole unpack.  Raises ValueError on a
     truncated stream, also one cut after the kept prefix (as the numpy path
@@ -59,11 +60,10 @@ def unpack(raw: bytes, count: int, keep: Optional[int] = None) -> np.ndarray:
     if not 0 <= keep <= count:
         raise ValueError(f"keep {keep} outside [0, {count}]")
     lib = _library()
+    src = np.frombuffer(raw, np.uint8)
     out = np.empty(keep, np.int16)
-    status = lib.db_vbz_unpack(
-        raw, len(raw), count, keep,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-    )
+    status = lib.db_vbz_unpack(src.ctypes.data, src.size, count, keep,
+                               out.ctypes.data)
     if status != 0:
         raise ValueError("svb16 stream truncated")
     return out

@@ -14,9 +14,12 @@ library is found, the first call raises an ``OSError`` that names it.
 - :func:`decompress` uses one ``ZSTD_DCtx`` per thread: a context must
   not be shared by threads that decompress at the same time (the reader
   threads of ``runner.executor.iter_signals`` do), and creating one per
-  chunk costs more than the chunk.  A thread's context is freed when the
-  thread ends.  An error code raises ``ValueError``, so a garbage file
-  counts as a failed file.
+  chunk costs more than the chunk.  It reads its source by address, so
+  any buffer will do (a read-only view of a mapped pod5 file too), and
+  writes into one output buffer per thread, which grows on demand and is
+  never zero-filled; it returns a view of that buffer, not a copy.  A
+  thread's context and buffer are freed when the thread ends.  An error
+  code raises ``ValueError``, so a garbage file counts as a failed file.
 
 Every ``size_t`` the library returns is declared as ``c_size_t`` and
 tested with ``ZSTD_isError``, never by its sign.
@@ -28,6 +31,8 @@ import ctypes
 import ctypes.util
 import threading
 from typing import Optional
+
+import numpy as np
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -52,8 +57,8 @@ def _library() -> ctypes.CDLL:
                                    ctypes.c_int], size_t),
                 "ZSTD_createDCtx": ([], void_p),
                 "ZSTD_freeDCtx": ([void_p], size_t),
-                "ZSTD_decompressDCtx": ([void_p, void_p, size_t,
-                                         ctypes.c_char_p, size_t], size_t),
+                "ZSTD_decompressDCtx": ([void_p, void_p, size_t, void_p,
+                                         size_t], size_t),
                 "ZSTD_isError": ([size_t], ctypes.c_uint),
                 "ZSTD_getErrorName": ([size_t], ctypes.c_char_p),
                 "ZSTD_versionNumber": ([], ctypes.c_uint),
@@ -88,28 +93,40 @@ def compress(data: bytes) -> bytes:
 
 
 class _DCtx:
-    """One thread's decompression context, freed with the thread's locals."""
+    """One thread's decompression context and output buffer, freed with
+    the thread's locals."""
 
     def __init__(self, lib: ctypes.CDLL) -> None:
         self.lib = lib
         self.ptr = lib.ZSTD_createDCtx()
         if not self.ptr:
             raise MemoryError("ZSTD_createDCtx failed")
+        self.out = np.empty(0, np.uint8)
+
+    def output(self, size: int) -> np.ndarray:
+        """The thread's output buffer, grown to at least ``size`` bytes."""
+        if self.out.size < size:
+            self.out = np.empty(size, np.uint8)
+        return self.out
 
     def __del__(self) -> None:
         if getattr(self, "ptr", None):
             self.lib.ZSTD_freeDCtx(self.ptr)
 
 
-def decompress(payload: bytes, max_size: int) -> bytes:
-    """The content of the zstd frame ``payload``, at most ``max_size``
-    bytes; raises ``ValueError`` for a corrupt frame or a larger content."""
+def decompress(payload, max_size: int) -> np.ndarray:
+    """The content of the zstd frame in the buffer ``payload``, at most
+    ``max_size`` bytes, as a uint8 view of this thread's output buffer: the
+    thread's next call overwrites it.  Raises ``ValueError`` for a corrupt
+    frame or a larger content."""
     lib = _library()
     ctx = getattr(_local, "ctx", None)
     if ctx is None:
         ctx = _local.ctx = _DCtx(lib)
-    out = ctypes.create_string_buffer(max(max_size, 1))
-    size = _checked(lib, lib.ZSTD_decompressDCtx(ctx.ptr, out, max_size,
-                                                 payload, len(payload)),
+    src = np.frombuffer(payload, np.uint8)
+    out = ctx.output(max(max_size, 1))
+    size = _checked(lib, lib.ZSTD_decompressDCtx(ctx.ptr, out.ctypes.data,
+                                                 max_size, src.ctypes.data,
+                                                 src.size),
                     "zstd decompression failed")
-    return ctypes.string_at(out, size)
+    return out[:size]

@@ -31,6 +31,7 @@ the spans with its next batch.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import multiprocessing as mp
 import os
@@ -230,7 +231,32 @@ class _Built(NamedTuple):
 # The seconds and counts a pod5 file's read/file span carries
 # (utils/pod5.read_pod5's ``times``).
 _POD5_TIMES = ("open", "tables", "zstd", "unpack", "bytes", "chunks",
-               "samples", "unpacked")
+               "payload_bytes", "samples", "unpacked")
+
+
+# glibc's mallopt parameters, and what a worker sets them to: above any
+# one batch's temporaries (the trim's (batch, trim_scan) float32 matrices
+# are 2 MiB each), so they stay on the heap from batch to batch.
+_M_TRIM_THRESHOLD, _M_MMAP_THRESHOLD = -1, -3
+_MMAP_THRESHOLD = 32 << 20
+_TRIM_THRESHOLD = 64 << 20
+
+
+def _keep_temporaries_on_the_heap() -> None:
+    """A worker allocates and frees the same multi-megabyte temporaries in
+    every batch.  glibc's defaults hand each one to ``mmap`` and return the
+    heap's free top to the system, so every batch pays page faults on
+    first touch again, unless the process happened to free a larger block
+    first (glibc's threshold follows the largest block freed).  Fixed
+    thresholds keep them on the heap whatever was freed before.  Nothing
+    happens where the C library has no ``mallopt``."""
+    mallopt = getattr(ctypes.CDLL(None), "mallopt", None)  # the C library's
+    if mallopt is None:
+        return
+    mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    mallopt.restype = ctypes.c_int
+    mallopt(_M_MMAP_THRESHOLD, _MMAP_THRESHOLD)
+    mallopt(_M_TRIM_THRESHOLD, _TRIM_THRESHOLD)
 
 
 def _pool_worker(
@@ -245,6 +271,8 @@ def _pool_worker(
 ) -> None:
     # Imported inside the child: file decode only, no torch.
     from deepbinner_tpu_torch.utils.fast5 import read_signal_file
+
+    _keep_temporaries_on_the_heap()
 
     shm_slots = _attach_slots(shm_names) if shm_names else None
 

@@ -38,9 +38,11 @@ Non-UUID read ids (pod5 proper allows only UUIDs) are preserved through a
 from __future__ import annotations
 
 import functools
+import mmap
 import os
 import struct
 import time
+import traceback
 import uuid
 from typing import List, Optional, Tuple
 
@@ -122,17 +124,20 @@ def vbz_compress(signal: np.ndarray) -> bytes:
     return zstd.compress(svb16_encode(_zigzag_encode(delta)))
 
 
-def vbz_decompress(payload: bytes, sample_count: int,
+def vbz_decompress(payload, sample_count: int,
                    keep: Optional[int] = None,
                    times: Optional[dict] = None) -> np.ndarray:
-    """One vbz chunk of ``sample_count`` samples → its first ``keep``
-    (default: all).  zstd decompresses the whole chunk; the unpack stops
-    after ``keep`` samples.  ``times``: where given, its ``"zstd"`` and
-    ``"unpack"`` seconds grow by this chunk's, its ``"chunks"`` by 1, its
-    ``"samples"`` by ``sample_count`` and its ``"unpacked"`` by ``keep``."""
-    # native.zstd keeps one decompression context per thread: the
-    # in-process reader threads (runner.executor.iter_signals) decode pod5
-    # files side by side, and a shared context is not safe for that.
+    """One vbz chunk of ``sample_count`` samples, in any buffer (a view of
+    a mapped pod5 file's bytes, for :func:`read_pod5`) → its first ``keep``
+    (default: all) as a new int16 array.  zstd decompresses the whole chunk
+    into its thread's output buffer; the unpack stops after ``keep``
+    samples.  ``times``: where given, its ``"zstd"`` and ``"unpack"``
+    seconds grow by this chunk's, its ``"chunks"`` by 1, its
+    ``"payload_bytes"`` by the compressed bytes, its ``"samples"`` by
+    ``sample_count`` and its ``"unpacked"`` by ``keep``."""
+    # native.zstd keeps one decompression context and output buffer per
+    # thread: the in-process reader threads (runner.executor.iter_signals)
+    # decode pod5 files side by side, and a shared one is not safe for that.
     from deepbinner_tpu_torch.native import zstd
 
     size = (sample_count + 7) // 8 + 2 * sample_count
@@ -147,14 +152,16 @@ def vbz_decompress(payload: bytes, sample_count: int,
     times["zstd"] += middle - begin
     times["unpack"] += time.perf_counter() - middle
     times["chunks"] += 1
+    times["payload_bytes"] += memoryview(payload).nbytes
     times["samples"] += sample_count
     times["unpacked"] += keep
     return out
 
 
-def _svb16_unpack(raw: bytes, sample_count: int, keep: int) -> np.ndarray:
-    """svb16 keys and bytes → zig-zag decode → the delta prefix sum, for
-    the first ``keep`` of the ``sample_count`` samples."""
+def _svb16_unpack(raw, sample_count: int, keep: int) -> np.ndarray:
+    """svb16 keys and bytes (any buffer) → zig-zag decode → the delta
+    prefix sum, for the first ``keep`` of the ``sample_count`` samples, in
+    a new int16 array."""
     from deepbinner_tpu_torch.native import vbz as native_vbz
 
     # One fused C pass where it can be built (native/vbz.py); the numpy
@@ -405,6 +412,12 @@ def _decode_read_signal(
     return np.concatenate(parts) if parts else np.zeros(0, np.int16)
 
 
+# The bytes around the footer: its int64 length, the section marker and
+# the signature; and the smallest file that holds them and a head.
+_TRAILER = 8 + 16 + len(SIGNATURE)
+_MIN_FILE = len(SIGNATURE) + 16 + _TRAILER
+
+
 def read_pod5(path: str | os.PathLike, head: int = 0, tail: int = 0,
               times: Optional[dict] = None) -> List[Tuple[str, np.ndarray]]:
     """Read every read in a pod5 file → [(read_id, int16 signal)].
@@ -413,55 +426,120 @@ def read_pod5(path: str | os.PathLike, head: int = 0, tail: int = 0,
     first-``head``/last-``tail`` samples (classify's access pattern — see
     :func:`_decode_read_signal`); 0 decodes everything (prep's).
 
+    The file is mapped read-only, and zstd reads each chunk it decodes
+    where it lies in the mapping: no byte of the file is copied before it
+    is decoded.  The mapping is closed before this returns, and no
+    returned array refers to it.  A file cut short or still being written
+    lacks its trailing signature and raises ``OSError``; a file truncated
+    in place while it is mapped ends the process (``SIGBUS``), as writers
+    that replace a finished file whole (``write_pod5``) never do.
+
     ``times`` (a reader worker's, while the program's spans record): a dict
-    whose ``"open"`` (reading the file's bytes), ``"tables"`` (the footer,
-    the Arrow IPC tables and the columns' ``to_pylist``), ``"zstd"`` and
-    ``"unpack"`` (svb16 and the prefix sum) seconds grow by this file's,
-    and whose ``"bytes"``, ``"chunks"`` (decoded), ``"samples"`` (of the
-    chunks zstd decompressed) and ``"unpacked"`` (samples unpacked) counts
-    too.
+    whose ``"open"`` (mapping the file, the signatures and the footer),
+    ``"tables"`` (the Arrow IPC tables and their columns' buffers),
+    ``"zstd"`` and ``"unpack"`` (svb16 and the prefix sum) seconds grow by
+    this file's, and whose ``"bytes"`` (the file's size), ``"chunks"``
+    (decoded), ``"payload_bytes"`` (their compressed bytes, handed to
+    zstd), ``"samples"`` (of the chunks zstd decompressed) and
+    ``"unpacked"`` (samples unpacked) counts too.
     """
+    begin = time.perf_counter()
+    with open(path, "rb") as handle:
+        size = os.fstat(handle.fileno()).st_size
+        if size < _MIN_FILE:
+            raise OSError(f"{path}: not a pod5 file ({size} bytes)")
+        mapping = mmap.mmap(handle.fileno(), size, access=mmap.ACCESS_READ)
+    try:
+        return _read_mapped(path, mapping, head, tail, times, begin)
+    except BaseException as error:
+        # The frames of the traceback hold views of the mapping, and a
+        # view left alive would keep it from closing.
+        traceback.clear_frames(error.__traceback__)
+        raise
+    finally:
+        mapping.close()  # BufferError if a view of it outlived the read
+
+
+def _view(array, dtype, extra: int = 0) -> np.ndarray:
+    """An Arrow array's second buffer as a numpy view: a fixed-width
+    array's values, or with ``extra`` = 1 a binary or list array's
+    offsets.  Read through numpy, not ``Array.to_numpy``, which imports
+    pandas where it is installed (half a second in each new worker)."""
+    if array.null_count:
+        raise OSError(f"pod5 column of {array.type} with "
+                      f"{array.null_count} nulls")
+    return np.frombuffer(array.buffers()[1], dtype, len(array) + extra,
+                         array.offset * np.dtype(dtype).itemsize)
+
+
+def _read_mapped(path, mapping: mmap.mmap, head: int, tail: int,
+                 times: Optional[dict],
+                 begin: float) -> List[Tuple[str, np.ndarray]]:
+    """:func:`read_pod5` on the file's mapping; every view of the mapping
+    it makes goes with its frame."""
     import pyarrow as pa
 
-    if times is not None:
-        begin = time.perf_counter()
-    with open(path, "rb") as handle:
-        buf = handle.read()
-    if times is not None:
-        parsed = time.perf_counter()
-        times["open"] += parsed - begin
-        times["bytes"] += len(buf)
-    if buf[:8] != SIGNATURE or buf[-8:] != SIGNATURE:
+    size = len(mapping)
+    if (mapping[:len(SIGNATURE)] != SIGNATURE
+            or mapping[size - len(SIGNATURE):] != SIGNATURE):
         raise OSError(f"{path}: not a pod5 file (bad signature)")
-    (footer_len,) = struct.unpack_from("<q", buf, len(buf) - 32)
-    footer = buf[len(buf) - 32 - footer_len : len(buf) - 32]
+    (footer_len,) = struct.unpack_from("<q", mapping, size - _TRAILER)
+    footer_at = size - _TRAILER - footer_len
+    if not 0 < footer_len <= size - _MIN_FILE:
+        raise OSError(f"{path}: pod5 footer length {footer_len} outside "
+                      f"the file")
+    with memoryview(mapping) as view:
+        embedded = _parse_footer(view[footer_at : size - _TRAILER])
+    if times is not None:
+        opened = time.perf_counter()
+        times["open"] += opened - begin
+        times["bytes"] += size
+
+    whole = pa.py_buffer(mapping)
     tables = {}
-    for offset, length, fmt, content_type in _parse_footer(footer):
+    for offset, length, fmt, content_type in embedded:
         if fmt != FORMAT_FEATHER_V2:
             continue
-        reader = pa.ipc.open_file(pa.BufferReader(buf[offset : offset + length]))
+        if offset < 0 or length < 0 or offset + length > footer_at:
+            raise OSError(f"{path}: pod5 table at {offset}+{length} outside "
+                          f"the file")
+        reader = pa.ipc.open_file(pa.BufferReader(whole.slice(offset, length)))
         tables[content_type] = reader.read_all()
-
     reads_table = tables.get(CONTENT_READS_TABLE)
     signal_table = tables.get(CONTENT_SIGNAL_TABLE)
     if reads_table is None or signal_table is None:
         raise OSError(f"{path}: pod5 footer lacks reads/signal tables")
 
-    payloads = signal_table.column("signal").to_pylist()
-    samples = signal_table.column("samples").to_pylist()
-    id_strings = (
-        reads_table.column("read_id_string").to_pylist()
-        if "read_id_string" in reads_table.column_names else None
-    )
-    out: List[Tuple[str, np.ndarray]] = []
-    uuid_col = reads_table.column("read_id").to_pylist()
-    index_col = reads_table.column("signal").to_pylist()
+    # Each Signal-table row's payload: a view of its record batch's data
+    # buffer, between two of the batch's offsets.
+    payloads, samples = [], []
+    for signal, count in zip(signal_table.column("signal").chunks,
+                             signal_table.column("samples").chunks):
+        if signal.type != pa.large_binary():
+            raise OSError(f"{path}: pod5 signal column of {signal.type}")
+        offsets = _view(signal, np.int64, 1).tolist()
+        values = signal.buffers()[2]
+        data = (np.frombuffer(values, np.uint8) if values is not None
+                else np.zeros(0, np.uint8))
+        payloads += [data[lo:hi] for lo, hi in zip(offsets[:-1], offsets[1:])]
+        samples += _view(count, np.uint32).tolist()
+
+    if "read_id_string" in reads_table.column_names:
+        read_ids = reads_table.column("read_id_string").to_pylist()
+    else:
+        read_ids = [str(uuid.UUID(bytes=b))
+                    for b in reads_table.column("read_id").to_pylist()]
+    # Each read's Signal-table rows: a slice of its record batch's list
+    # values.
+    read_indices = []
+    for signal in reads_table.column("signal").chunks:
+        offsets = _view(signal, np.int32, 1).tolist()
+        values = _view(signal.values, np.uint64)
+        read_indices += [values[lo:hi].tolist()
+                         for lo, hi in zip(offsets[:-1], offsets[1:])]
     if times is not None:
-        times["tables"] += time.perf_counter() - parsed
-    for row, indices in enumerate(index_col):
-        signal = _decode_read_signal(payloads, samples, indices, head, tail,
-                                     times)
-        read_id = (id_strings[row] if id_strings is not None
-                   else str(uuid.UUID(bytes=uuid_col[row])))
-        out.append((read_id, signal))
-    return out
+        times["tables"] += time.perf_counter() - opened
+
+    return [(read_id, _decode_read_signal(payloads, samples, indices, head,
+                                          tail, times))
+            for read_id, indices in zip(read_ids, read_indices)]

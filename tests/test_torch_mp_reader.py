@@ -331,3 +331,49 @@ def test_ring_close_with_a_held_view():
         assert not os.path.exists(f"/dev/shm/{name}")
     assert int(held[0][0, 0]) == 7  # the held mapping is still valid
     del held
+
+
+_HEAP_CHECK = r"""
+import json, sys
+import numpy as np
+from deepbinner_tpu_torch.runner import mp_reader
+
+def on_heap(array):
+    at = array.ctypes.data
+    with open("/proc/self/maps") as maps:
+        for line in maps:
+            if line.rstrip().endswith("[heap]"):
+                lo, hi = (int(x, 16) for x in line.split()[0].split("-"))
+                if lo <= at < hi:
+                    return True
+    return False
+
+before = on_heap(np.ones(4 << 20, np.uint8))
+if sys.argv[1] == "set":
+    mp_reader._keep_temporaries_on_the_heap()
+after = on_heap(np.ones(8 << 20, np.uint8))
+print(json.dumps({"before": before, "after": after}))
+"""
+
+
+@pytest.mark.parametrize("setting", ["default", "set"])
+def test_worker_keeps_its_batch_temporaries_on_the_heap(setting):
+    """A reader worker fixes glibc's thresholds, so a block of several MiB
+    comes from the heap instead of a mapping of its own, as it does by
+    default (glibc's threshold grows only to the largest block freed so
+    far, here 4 MiB).  In a child process: the setting is the whole
+    process's."""
+    import json
+    import subprocess
+    import sys
+
+    if not os.path.exists("/proc/self/maps"):
+        pytest.skip("no /proc/self/maps here to find the heap")
+    proc = subprocess.run(
+        [sys.executable, "-c", _HEAP_CHECK, setting], capture_output=True,
+        text=True, timeout=120,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["before"] is False  # glibc maps a 4 MiB block by default
+    assert got["after"] is (setting == "set")

@@ -280,10 +280,13 @@ def test_pod5_bounded_unpack_is_trim_of_full_decode(edge_reads, unpack_path,
     assert (unpacked < samples) == (head % chunk != 0)
 
 
-@pytest.mark.parametrize("damage", ["not_pod5", "truncated", "bad_chunk"])
+@pytest.mark.parametrize("damage", ["not_pod5", "truncated", "bad_chunk",
+                                    "empty", "cut_in_payload"])
 def test_pod5_rejects_garbage(tmp_path, damage):
     """A damaged file raises; reader threads count it as a failed file and
-    read the good one beside it."""
+    read the good one beside it.  A file that is empty, or cut short (as
+    one still being written is), raises OSError before any chunk is
+    read."""
     good = tmp_path / "good.pod5"
     reads = _reads(4)
     pod5.write_pod5(good, reads)
@@ -293,12 +296,18 @@ def test_pod5_rejects_garbage(tmp_path, damage):
         bad.write_bytes(b"not a pod5 file at all")
     elif damage == "truncated":
         bad.write_bytes(data[: len(data) // 2])
+    elif damage == "empty":
+        bad.write_bytes(b"")
+    elif damage == "cut_in_payload":  # inside the last chunk's zstd frame
+        frame = pod5.vbz_compress(reads[-1][1])
+        at = data.rindex(frame)
+        bad.write_bytes(data[: at + len(frame) // 2])
     else:  # a zstd frame in the signal table loses its magic number
         at = data.index(pod5.vbz_compress(reads[0][1]))
         bad.write_bytes(data[:at] + bytes(4) + data[at + 4:])
     with pytest.raises(Exception) as exc:
         pod5.read_pod5(bad)
-    if damage == "not_pod5":
+    if damage != "bad_chunk":
         assert isinstance(exc.value, OSError)
     stats = executor.ExecutorStats()
     got = dict(executor.iter_signals(find_signal_files(tmp_path), num_readers=2,
@@ -310,7 +319,7 @@ def test_pod5_rejects_garbage(tmp_path, damage):
 def test_zstd_errors_raise_value_error():
     raw = bytes(range(200)) * 10
     frame = zstd.compress(raw)
-    assert zstd.decompress(frame, len(raw)) == raw
+    assert zstd.decompress(frame, len(raw)).tobytes() == raw
     with pytest.raises(ValueError, match="zstd decompression failed"):
         zstd.decompress(b"\x00" * 32, 1024)  # not a frame
     with pytest.raises(ValueError, match="zstd decompression failed"):
@@ -321,16 +330,29 @@ def test_zstd_errors_raise_value_error():
 
 
 def test_zstd_contexts_are_per_thread_and_freed():
-    """One decompression context per thread, freed when the thread ends."""
+    """One decompression context and one output buffer per thread, the
+    buffer reused from call to call (each result a view of it) and grown
+    on demand, both freed when the thread ends."""
     frame = zstd.compress(b"abc" * 1000)
+    larger = zstd.compress(b"abcd" * 1000)
     contexts = []
     barrier = threading.Barrier(6)
 
     def work():
         barrier.wait(timeout=30)
         for _ in range(20):
-            assert zstd.decompress(frame, 3000) == b"abc" * 1000
-        contexts.append((zstd._local.ctx.ptr, weakref.ref(zstd._local.ctx)))
+            got = zstd.decompress(frame, 3000)
+            assert got.tobytes() == b"abc" * 1000
+        ctx = zstd._local.ctx
+        assert np.shares_memory(got, ctx.out) and ctx.out.size == 3000
+        first = ctx.out.ctypes.data
+        assert zstd.decompress(frame, 3000).ctypes.data == first  # reused
+        assert zstd.decompress(larger, 4000).tobytes() == b"abcd" * 1000
+        assert ctx.out.size == 4000  # grown
+        assert zstd.decompress(frame, 3000).ctypes.data == ctx.out.ctypes.data
+        contexts.append((ctx.ptr, weakref.ref(ctx), ctx.out.ctypes.data,
+                         weakref.ref(ctx.out)))
+        del got
         barrier.wait(timeout=30)  # all alive: their contexts are distinct
 
     threads = [threading.Thread(target=work) for _ in range(6)]
@@ -339,9 +361,137 @@ def test_zstd_contexts_are_per_thread_and_freed():
     for thread in threads:
         thread.join(timeout=60)
     assert not any(thread.is_alive() for thread in threads)
-    assert len({ptr for ptr, _ref in contexts}) == 6
+    assert len(contexts) == 6
+    assert len({ptr for ptr, *_rest in contexts}) == 6
+    assert len({out for _ptr, _ref, out, _out_ref in contexts}) == 6
     gc.collect()
-    assert all(ref() is None for _ptr, ref in contexts)  # freed (__del__)
+    assert all(ref() is None for _ptr, ref, _out, _out_ref in contexts)
+    assert all(out_ref() is None for *_rest, out_ref in contexts)
+
+
+@pytest.mark.parametrize("head,tail", [(0, 0), (1500, 1200), (1500, 0)])
+def test_read_pod5_counts_the_payload_bytes_it_decodes(tmp_path, monkeypatch,
+                                                       head, tail):
+    """``payload_bytes`` is the sum of the compressed bytes of the chunks
+    decoded, at most the file's ``bytes``; below it with a head, which
+    leaves the middle chunks alone."""
+    from deepbinner_tpu_torch.runner.mp_reader import _POD5_TIMES
+
+    path = tmp_path / "payload.pod5"
+    pod5.write_pod5(path, _reads(10), chunk_size=700)
+    handed = []
+    real = pod5.vbz_decompress
+
+    def counting(payload, count, keep=None, times=None):
+        handed.append(memoryview(payload).nbytes)
+        return real(payload, count, keep, times)
+
+    monkeypatch.setattr(pod5, "vbz_decompress", counting)
+    times = dict.fromkeys(_POD5_TIMES, 0)
+    pod5.read_pod5(path, head, tail, times)
+    assert times["chunks"] == len(handed) > 0
+    assert times["payload_bytes"] == sum(handed) <= times["bytes"]
+    assert times["bytes"] == os.path.getsize(path)
+    if head:
+        whole = dict.fromkeys(_POD5_TIMES, 0)
+        pod5.read_pod5(path, 0, 0, whole)
+        assert times["payload_bytes"] < whole["payload_bytes"]
+
+
+def _mapped(path) -> bool:
+    with open("/proc/self/maps") as maps:
+        return any(line.rstrip("\n").endswith(os.fspath(path))
+                   for line in maps)
+
+
+@pytest.mark.parametrize("outcome", ["returned", "raised"])
+def test_no_mapping_outlives_read_pod5(tmp_path, monkeypatch, outcome):
+    """The file's mapping is closed when read_pod5 returns or raises, and
+    no returned array refers to it: overwriting the file in place leaves
+    them as they were."""
+    if not os.path.exists("/proc/self/maps"):
+        pytest.skip("no /proc/self/maps here to list the mappings")
+    reads = _reads(11)
+    path = tmp_path / "mapped.pod5"
+    pod5.write_pod5(path, reads, chunk_size=700)
+    if outcome == "raised":
+        real = pod5.vbz_decompress
+        calls = []
+
+        def failing(payload, count, keep=None, times=None):
+            calls.append(count)
+            if len(calls) == 3:
+                raise ValueError("chunk 3 fails")
+            return real(payload, count, keep, times)
+
+        monkeypatch.setattr(pod5, "vbz_decompress", failing)
+        with pytest.raises(ValueError, match="chunk 3 fails"):
+            pod5.read_pod5(path, 1500, 1200)
+        assert not _mapped(path)
+        return
+    got = pod5.read_pod5(path, 1500, 1200)
+    assert not _mapped(path)
+    want = [(r, s.copy()) for r, s in got]
+    before = path.read_bytes()
+    other = tmp_path / "other.pod5"
+    pod5.write_pod5(other, [(r, s[::-1] + 1) for r, s in reads],
+                    chunk_size=700)
+    with open(path, "r+b") as handle:  # the same inode, written over
+        handle.write(other.read_bytes())
+    after = path.read_bytes()
+    assert sum(a != b for a, b in zip(before, after)) > len(before) // 2
+    _assert_same_reads(got, want)
+
+
+class _SplitWriter:
+    """An Arrow IPC file writer that writes each table in record batches of
+    ``rows`` rows, as real pod5 files hold them."""
+
+    def __init__(self, writer, rows):
+        self.writer, self.rows = writer, rows
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.writer.close()
+
+    def write_table(self, table):
+        self.writer.write_table(table, max_chunksize=self.rows)
+
+
+@pytest.mark.parametrize("head,tail", [(0, 0), (1500, 1200), (1500, 0)])
+def test_pod5_tables_in_several_record_batches(tmp_path, monkeypatch, head,
+                                               tail):
+    """Signal and Reads tables that each span several record batches read
+    as the JAX package reads them, and as the one-batch file of the same
+    reads."""
+    import pyarrow as pa
+
+    reads = _reads(12)
+    single = tmp_path / "single.pod5"
+    pod5.write_pod5(single, reads, chunk_size=700)
+    new_file = pa.ipc.new_file
+    monkeypatch.setattr(pa.ipc, "new_file", lambda sink, schema: _SplitWriter(
+        new_file(sink, schema), 3))
+    split = tmp_path / "split.pod5"
+    pod5.write_pod5(split, reads, chunk_size=700)
+    monkeypatch.undo()
+
+    data = split.read_bytes()
+    (footer_len,) = struct.unpack_from("<q", data, len(data) - 32)
+    batches = {}
+    for offset, length, _fmt, content in pod5._parse_footer(
+            data[len(data) - 32 - footer_len : len(data) - 32]):
+        reader = pa.ipc.open_file(pa.BufferReader(data[offset:offset + length]))
+        batches[content] = reader.num_record_batches
+    assert batches[pod5.CONTENT_SIGNAL_TABLE] > 2
+    assert batches[pod5.CONTENT_READS_TABLE] > 1
+
+    got = pod5.read_pod5(split, head, tail)
+    _assert_same_reads(got, jax_pod5.read_pod5(split, head, tail))
+    _assert_same_reads(got, pod5.read_pod5(single, head, tail))
+    _assert_same_reads(pod5.read_pod5(split), reads)
 
 
 def test_missing_libzstd_is_named(monkeypatch):
@@ -390,3 +540,27 @@ def test_pod5_without_zstandard_or_flatbuffers(tmp_path):
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result == {"same": True, "loaded": []}
     _assert_same_reads(jax_pod5.read_pod5(path), pod5.read_pod5(path))
+
+
+_READ_ONLY = r"""
+import json, sys
+from deepbinner_tpu_torch.utils import pod5
+reads = pod5.read_pod5(sys.argv[1], 1500, 1200)
+print(json.dumps({"reads": len(reads),
+                  "pandas": any(m.split(".")[0] == "pandas"
+                                for m in sys.modules)}))
+"""
+
+
+def test_read_pod5_imports_no_pandas(tmp_path):
+    """A new reader worker's first file costs no pandas import: the Arrow
+    columns are read through numpy, not ``Array.to_numpy``."""
+    path = tmp_path / "fresh.pod5"
+    pod5.write_pod5(path, _reads(13), chunk_size=700)
+    proc = subprocess.run([sys.executable, "-c", _READ_ONLY, str(path)],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=os.path.dirname(os.path.dirname(
+                              os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"reads": 4, "pandas": False}
