@@ -15,15 +15,23 @@ counts the rows produced before it closes.
 The reader pool's batch iterator is wrapped, so the read ids of every
 batch handed to the stream are known in order: row k must be the k-th of
 them.  After the window, every read handed over in it must have its row
-within ``LATE_S`` seconds; then the stream is closed, the card's peak
-memory read, the pool stopped, and the plain reference
+within ``LATE_S`` seconds; then the card's peak memory is read, the
+stream closed, the pool stopped, and the plain reference
 (``references/demuxnet.py``) works out each read of the corpus again for
 :class:`benchmark.compare.Expected` to judge every row of the window.
 
-With ``--trace 1`` the program's calls are annotated (``bench/*``), the
-batches it is called on and the K1 wrapper's launches recorded, and
-``torch.profiler`` traces the middle of the window (at most ``TRACE_S``
-seconds), opened and closed on a drained card.
+With ``--trace 1`` the window has two stretches.  From its start the
+program's own recorder (``runner/spans.start()``) records alone, with no
+profiler: the untraced stretch, which the host's per-layer metrics read
+(``program_spans.untraced``).  It is stopped just before
+``torch.profiler`` opens, on a drained card, to trace the middle of the
+window (at most ``TRACE_S`` seconds) with the program's calls annotated
+(``bench/*``) and the K1 wrapper's launches recorded; the classify stream
+then records its spans again itself, and those go into the trace to name
+its idle gaps.  The program's batches are recorded in both stretches.
+After the window the stream is closed and the same reader pool reads the
+corpus alone, with nothing uploaded, for ``pool_reads_per_s``.  A
+``--trace 0`` run starts no recorder and makes no such pass.
 
 K1's nvcc build, on a checkout's first run, happens inside the warm-up
 pass and so inside ``setup_s``; its seconds are also reported apart, as
@@ -46,13 +54,15 @@ from typing import List, Optional
 import numpy as np
 
 from benchmark import corpus as corpus_mod
-from benchmark import flops, harness
+from benchmark import flops, harness, program_spans
 from benchmark.compare import Expected
 from benchmark.references import demuxnet
 from benchmark.trace import load as load_trace
 
 LATE_S = 60.0        # how long a read handed over in the window may take
 TRACE_S = 5.0        # the longest traced part of a window
+POOL_UNTIMED_S = 1.0  # the start of the pool-only pass, not timed
+POOL_TIMED_S = 8.0    # the timed part of the pool-only pass
 MAX_READS_PER_S = 50_000  # sizes the repeated file list, past any rate seen
 CLOCK = "bench/clock"
 
@@ -82,14 +92,24 @@ def _cli_argv(config: dict, corpus_dir: str, extra_args) -> List[str]:
 
 
 class _Tracer:
-    """The traced part of a window: opened and closed on a drained card,
-    with the program's batches and K1's launches recorded while it is open."""
+    """The two stretches of a ``--trace 1`` window.  Made at the window's
+    start, it turns the program's recorder on (the untraced stretch; a
+    recording a caller already has on is left alone, and the stretch then
+    has none); at ``begin`` it stops it and opens the traced part, on a
+    drained card, closed at ``end``.  The program's batches are recorded
+    in each stretch, K1's launches in the traced part."""
 
     def __init__(self, torch, device, begin: float, end: float,
                  recorded: dict) -> None:
         from torch.profiler import ProfilerActivity, profile
 
-        self.torch, self.device = torch, device
+        from deepbinner_tpu_torch.runner import spans
+
+        self.untraced = self.untraced_end = None
+        if spans.current() is None:
+            self.untraced = spans.start()
+            recorded["rows"] = recorded["untraced"]
+        self.torch, self.device, self.spans = torch, device, spans
         self.begin, self.end = begin, end
         self.recorded = recorded
         activities = [ProfilerActivity.CPU]
@@ -98,12 +118,21 @@ class _Tracer:
         self.profile = profile(activities=activities)
         self.opened = self.window_s = self.clock = None
 
+    def _stop_untraced(self) -> None:
+        if self.untraced_end is not None:
+            return
+        self.untraced_end = self.spans.clock()
+        if self.untraced is not None and self.spans.current() is self.untraced:
+            self.spans.stop(self.untraced_end)
+        self.recorded["rows"] = None
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             self.torch.cuda.synchronize(self.device)
 
     def tick(self, now: float) -> None:
         if self.opened is None and now >= self.begin:
+            self._stop_untraced()
             self._sync()
             self.profile.start()
             # The profiler records the main thread's annotations only; this
@@ -113,16 +142,19 @@ class _Tracer:
             for key in ("k1", "batches"):
                 self.recorded[key].clear()
             self.recorded["on"] = True
+            self.recorded["rows"] = self.recorded["batches"]
             self.opened = time.perf_counter()
         elif self.opened is not None and self.window_s is None and now >= self.end:
             self.close()
 
     def close(self) -> None:
+        self._stop_untraced()
         if self.opened is None or self.window_s is not None:
             return
         self._sync()
         self.window_s = time.perf_counter() - self.opened
         self.recorded["on"] = False
+        self.recorded["rows"] = None
         self.profile.stop()
 
 
@@ -165,7 +197,7 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
         dual = program.cfg.dual_model
         stats = executor.ExecutorStats()
         runner = cli.StreamRunner(program, args, stats)
-        phase("reader pool")
+        phase("reader_pool")
         stream = None
         try:
             if runner.pool is None:
@@ -194,8 +226,11 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
                     source.close()
 
             runner.pool.iter_batches = iter_batches
-            # K1 launches and the program's batches while a trace is open
-            recorded = {"on": False, "k1": [], "batches": []}
+            # K1's launches while the traced part is open, and the reads of
+            # each batch the program is called on into "rows": the list of
+            # the stretch now open, the untraced one's or the traced one's.
+            recorded = {"on": False, "k1": [], "batches": [], "untraced": [],
+                        "rows": None}
             if trace:
                 _annotate_program(program, executor, kernel_apply, annotate,
                                   recorded, restore)
@@ -209,7 +244,7 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
             with lock:
                 batches.clear()
                 waits.clear()
-            phase("warm-up pass")
+            phase("warm_up")
             k1_build_s = kernel_build.BUILD_SECONDS.get("conv1d_bn_relu", 0.0)
             _Phases.log("of which K1's nvcc build", k1_build_s)
 
@@ -219,17 +254,26 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
             seen = _consume(stream, cli.result_to_row, dual, corpus.reads,
                             seconds, lock, batches, trace, torch,
                             program.device, recorded)
-            phase("window and the rows due", seen["t_start"])
-            if seen["tracer"] is not None:
-                seen["tracer"].close()
+            phase("ramp", seen["t_start"])
+            _Phases.log("window and the rows due",
+                        time.perf_counter() - seen["t_start"])
             if program.device.type == "cuda":
                 torch.cuda.synchronize(program.device)
                 peak = torch.cuda.max_memory_allocated(program.device)
                 kind = torch.cuda.get_device_name(program.device)
             else:
                 peak, kind = 0, "cpu"
+            pool_reads_per_s = None
+            if trace:
+                stream.close()
+                _drop_queued_files(runner.pool)
+                began = time.perf_counter()
+                pool_reads_per_s = _pool_reads_per_s(
+                    runner.pool, pool_batches, corpus, stats)
+                _Phases.log("pool-only pass", time.perf_counter() - began)
             forbidden = harness.forbidden_modules()
-            profile = seen["tracer"].profile if seen["tracer"] else None
+            tracer = seen["tracer"]
+            profile = tracer.profile if tracer else None
         finally:
             if stream is not None:
                 stream.close()
@@ -244,25 +288,34 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
             torch.cuda.empty_cache()
 
         device_info = {"platform": "gpu" if kind != "cpu" else "cpu",
-                       "kind": kind, "count": 1, "memory_peak_bytes": int(peak)}
+                       "kind": kind, "count": 1, "memory_peak_bytes": int(peak),
+                       **harness.host_cpus()}
         record = harness.Record(
             seconds=seconds, setup_s=seen["t_start"] - t0,
             rows=seen["rows_in_window"],
-            pool_wait_s=sum(max(0.0, min(end, seen["t_end"])
-                                - max(begin, seen["t_start"]))
-                            for begin, end in waits),
-            windows_per_read=geometry.num_windows, ends=ends, network=network)
+            pool_wait_s=_waited(waits, seen["t_start"], seen["t_end"]),
+            windows_per_read=geometry.num_windows, ends=ends, network=network,
+            pool_reads_per_s=pool_reads_per_s)
+        if tracer is not None:
+            record.untraced = harness.Untraced(
+                seconds=tracer.untraced_end - seen["t_start"],
+                pool_wait_s=_waited(waits, seen["t_start"],
+                                    tracer.untraced_end),
+                recording=tracer.untraced, batches=recorded["untraced"])
         breakdown = None
-        if profile is not None and seen["tracer"].window_s is not None:
+        if profile is not None and tracer.window_s is not None:
             path = os.path.join(work, "trace.json")
             profile.export_chrome_trace(path)
             record.trace = load_trace(path)
             os.unlink(path)
-            record.trace.add_host_spans(waits, seen["tracer"].clock, CLOCK,
-                                        "bench/pool_wait")
-            record.trace_window_s = seen["tracer"].window_s
+            record.trace_window_s = tracer.window_s
             record.k1_launches = recorded["k1"]
             record.step_batches = recorded["batches"]
+            host = [(begin, end, "bench/pool_wait") for begin, end in waits]
+            traced = program_spans.recording(record)
+            if traced is not None:
+                host += program_spans.stream_spans(traced)
+            record.trace.add_host_spans(host, tracer.clock, CLOCK)
             device_info["busy_s"] = record.trace.busy_us() * 1e-6
             device_info["window_s"] = record.trace_window_s
             breakdown = {"device_ops": record.trace.top_device_ops(),
@@ -312,6 +365,7 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
             "device": device_info,
             "breakdown": breakdown,
             "k1_build_s": k1_build_s,
+            "setup_phases": phase.seconds,
             "checks": checks,
             "forbidden": forbidden,
             "record": record,
@@ -321,23 +375,71 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
 
 
 class _Phases:
-    """Logs the seconds each part of a run took, on standard error."""
+    """The seconds each phase of set-up took, from the process's start
+    ``t0`` to the window's: logged on standard error as each ends, and kept
+    in ``seconds`` (their sum is ``setup_s``)."""
 
     def __init__(self, t0: float) -> None:
-        self.last = time.perf_counter()
-        self.log("process start to imports", self.last - t0)
+        self.last = t0
+        self.seconds: dict = {}
+        self("imports")
 
     @staticmethod
     def log(name: str, seconds: float) -> None:
         print(f"bench: {name} {seconds:.3f} s", file=sys.stderr, flush=True)
 
-    def __call__(self, name: str, since: Optional[float] = None) -> None:
-        now = time.perf_counter()
-        if since is not None:
-            self.log("ramp (to the window)", since - self.last)
-            self.last = since
-        self.log(name, now - self.last)
+    def __call__(self, name: str, until: Optional[float] = None) -> None:
+        """The phase ``name`` ended now, or at ``until``."""
+        now = time.perf_counter() if until is None else until
+        self.seconds[name] = now - self.last
+        self.log(name, self.seconds[name])
         self.last = now
+
+
+def _waited(waits, begin: float, end: float) -> float:
+    """The part of ``[begin, end]`` spent in the ``(start, end)`` waits."""
+    return sum(max(0.0, min(b, end) - max(a, begin)) for a, b in waits)
+
+
+def _pool_reads_per_s(pool, iter_batches, corpus, stats) -> Optional[float]:
+    """The reader pool's own rate, once the stream is closed and its queued
+    files dropped: an empty pass first waits until every worker has
+    finished the files it holds (and another one after, so the pool is
+    left as idle as it was found); then ``iter_batches``, the pool's own,
+    reads the corpus repeated past any rate seen, each batch's slot
+    released as it arrives, and the reads handed over from
+    ``POOL_UNTIMED_S`` after the pass's start to ``POOL_TIMED_S`` later,
+    ÷ ``POOL_TIMED_S``, are the rate.  A failed file counts in ``stats``;
+    a pass that runs out first gives None."""
+    _settle(iter_batches, stats)
+    repeats = -(-int(2 * MAX_READS_PER_S * (POOL_UNTIMED_S + POOL_TIMED_S))
+                // corpus.reads)
+    timed = time.perf_counter() + POOL_UNTIMED_S
+    end = timed + POOL_TIMED_S
+    reads = 0
+    batches = iter_batches(corpus.paths * repeats, stats, copy=False)
+    try:
+        for batch in batches:
+            now = time.perf_counter()
+            if batch.release is not None:
+                batch.release()
+            if now >= end:
+                return reads / POOL_TIMED_S
+            if now >= timed:
+                reads += len(batch.ids)
+    finally:
+        batches.close()
+        _drop_queued_files(pool)
+        _settle(iter_batches, stats)
+    return None
+
+
+def _settle(iter_batches, stats) -> None:
+    """An empty pass: it ends once every worker has finished the files it
+    holds and handed over what it had left, each batch's slot released."""
+    for batch in iter_batches([], stats, copy=False):
+        if batch.release is not None:
+            batch.release()
 
 
 def _drop_queued_files(pool) -> None:
@@ -356,17 +458,18 @@ def _drop_queued_files(pool) -> None:
 def _annotate_program(program, executor, kernel_apply, annotate, recorded,
                       restore):
     """Annotate the program's calls (``bench/upload``, ``bench/call``,
-    ``bench/drain``) and, while ``recorded["on"]``, record the reads of
-    each batch the program is called on (``recorded["batches"]``) and each
-    K1 launch's shape (``recorded["k1"]``); ``restore`` gets what to put
-    back."""
+    ``bench/drain``), record the reads of each batch the program is called
+    on into ``recorded["rows"]`` where that is a list, and, while
+    ``recorded["on"]``, each K1 launch's shape (``recorded["k1"]``);
+    ``restore`` gets what to put back."""
 
     def wrap(target, name, label):
         original = getattr(target, name)
 
         def annotated(*args, **kwargs):
-            if name == "call_packed" and recorded["on"]:
-                recorded["batches"].append(int(args[0].shape[0]))
+            rows = recorded["rows"]
+            if name == "call_packed" and rows is not None:
+                rows.append(int(args[0].shape[0]))
             with annotate(label):
                 return original(*args, **kwargs)
 
@@ -393,54 +496,61 @@ def _annotate_program(program, executor, kernel_apply, annotate, recorded,
 def _consume(stream, to_row, dual, ramp_rows, seconds, lock, batches,
              trace, torch, device, recorded) -> dict:
     """Read the stream: a pass's worth of rows, then the window, then the
-    rows still due for reads handed over in it."""
+    rows still due for reads handed over in it.  With ``trace`` the
+    window's :class:`_Tracer` is made at its start and closed at the end."""
     seen = {"ids": [], "calls": [], "start": [], "end": [], "tracer": None,
             "rows_in_window": 0, "attempted": 0, "ran_out": True}
     count = 0
     t_start = t_end = p1 = None
     tracer = None
-    for result in stream:
-        now = time.perf_counter()
-        read_id, call = to_row(result, False, dual).split("\t")
-        if t_start is None:
+    try:
+        for result in stream:
+            now = time.perf_counter()
+            read_id, call = to_row(result, False, dual).split("\t")
+            if t_start is None:
+                count += 1
+                if count >= ramp_rows:
+                    t_start = time.perf_counter()
+                    t_end = t_start + seconds
+                    seen.update(t_start=t_start, t_end=t_end, p0=count)
+                    if trace:
+                        span = min(TRACE_S, seconds / 2)
+                        begin = t_start + (seconds - span) / 2
+                        tracer = _Tracer(torch, device, begin, begin + span,
+                                         recorded)
+                        seen["tracer"] = tracer
+                continue
+            if now < t_end:
+                seen["rows_in_window"] += 1
+            elif p1 is None:
+                with lock:
+                    p1 = sum(len(ids) for t, ids in batches if t < t_end)
+                    seen["attempted"] = sum(len(ids) for t, ids in batches
+                                            if t_start <= t < t_end)
+                seen["p1"] = p1
+                if tracer is not None:
+                    tracer.close()
+            if p1 is not None and count >= p1:
+                seen["ran_out"] = False
+                break
+            seen["ids"].append(read_id)
+            seen["calls"].append(call)
+            seen["start"].append(result.start_probs)
+            seen["end"].append(result.end_probs)
             count += 1
-            if count >= ramp_rows:
-                t_start = time.perf_counter()
-                t_end = t_start + seconds
-                seen.update(t_start=t_start, t_end=t_end, p0=count)
-                if trace:
-                    span = min(TRACE_S, seconds / 2)
-                    begin = t_start + (seconds - span) / 2
-                    tracer = _Tracer(torch, device, begin, begin + span,
-                                     recorded)
-                    seen["tracer"] = tracer
-            continue
-        if now < t_end:
-            seen["rows_in_window"] += 1
-        elif p1 is None:
-            with lock:
-                p1 = sum(len(ids) for t, ids in batches if t < t_end)
-                seen["attempted"] = sum(len(ids) for t, ids in batches
-                                        if t_start <= t < t_end)
-            seen["p1"] = p1
+            if p1 is not None and count >= p1:
+                seen["ran_out"] = False
+                break
+            if now >= t_end + LATE_S:
+                seen["ran_out"] = False
+                break
             if tracer is not None:
-                tracer.close()
-        if p1 is not None and count >= p1:
-            seen["ran_out"] = False
-            break
-        seen["ids"].append(read_id)
-        seen["calls"].append(call)
-        seen["start"].append(result.start_probs)
-        seen["end"].append(result.end_probs)
-        count += 1
-        if p1 is not None and count >= p1:
-            seen["ran_out"] = False
-            break
-        if now >= t_end + LATE_S:
-            seen["ran_out"] = False
-            break
+                tracer.tick(now)
+    finally:
+        # The untraced stretch's recorder and the profiler off, whatever
+        # ended the loop.
         if tracer is not None:
-            tracer.tick(now)
+            tracer.close()
     if t_start is None:
         raise RuntimeError("the stream ended before a pass's worth of rows")
     seen.setdefault("p1", count)

@@ -102,6 +102,29 @@ def read_metrics(entries: List[dict], record) -> Dict[str, dict]:
     return out
 
 
+def host_cpus() -> Dict[str, object]:
+    """The host's CPU model, its logical CPUs, and the CPUs this process
+    may run on.  The model is ``/proc/cpuinfo``'s first ``model name``;
+    where that is missing or ``unknown`` (as some virtualised kernels give
+    it), its vendor, family, model and stepping, or ``unknown``."""
+    fields: Dict[str, str] = {}
+    try:
+        with open("/proc/cpuinfo") as handle:
+            for line in handle:
+                if not line.strip():
+                    break  # the first processor's block only
+                key, _sep, value = line.partition(":")
+                if value.strip() not in ("", "unknown"):
+                    fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or " ".join(
+        f"{key} {fields[key]}" for key in ("vendor_id", "cpu family", "model",
+                                           "stepping") if fields.get(key))
+    return {"cpu_model": model or "unknown", "cpu_count": os.cpu_count(),
+            "cpu_affinity": len(os.sched_getaffinity(0))}
+
+
 def check_lines(checks: Dict[str, dict]) -> List[str]:
     return [f"check {name}: {c['value']!r} (limit {c['limit']!r})"
             for name, c in checks.items()]
@@ -130,6 +153,26 @@ def stop_children() -> None:
 
 
 @dataclasses.dataclass
+class Untraced:
+    """The untraced stretch of a ``--trace 1`` run: from the window's start
+    to just before the profiler opens, with the program's recorder on and
+    no profiler.
+
+    ``seconds`` is its length and ``pool_wait_s`` the part of it the stream
+    spent blocked on the reader pool's batch iterator, both on the
+    harness's clock; ``recording`` is the program's recording of it (a
+    ``deepbinner_tpu_torch.runner.spans.Recording``), and ``batches`` the
+    reads of each batch the program was called on in it, as the harness
+    saw them.
+    """
+
+    seconds: float
+    pool_wait_s: float
+    recording: Optional[object]
+    batches: list
+
+
+@dataclasses.dataclass
 class Record:
     """What a run saw, for the metric readers (``metrics/*.py``).
 
@@ -140,7 +183,9 @@ class Record:
     ``--trace 1`` run, ``trace_window_s`` long; ``k1_launches`` holds the
     :class:`benchmark.flops.Unit` of each K1 launch made in it, in order,
     and ``step_batches`` the reads of each batch the program was called on
-    in it.
+    in it.  ``untraced`` (an :class:`Untraced`) is the stretch of a
+    ``--trace 1`` run before the traced part, and ``pool_reads_per_s`` the
+    reader pool's own rate, from the pool-only pass after the window.
     """
 
     seconds: float
@@ -154,3 +199,5 @@ class Record:
     trace_window_s: Optional[float] = None
     k1_launches: Optional[list] = None
     step_batches: Optional[list] = None
+    untraced: Optional[Untraced] = None
+    pool_reads_per_s: Optional[float] = None

@@ -1,16 +1,26 @@
 """The program's own spans and counters, for the per-layer metrics that
 read them (``metrics/worker_*.py``, ``enqueue_share``, ``result_share``,
-``consumer_share``).
+``consumer_share``), and for the idle gaps' names.
 
-The port keeps them in memory (``deepbinner_tpu_torch/runner/spans.py``)
-and its classify stream records while a ``torch.profiler`` records, so the
-traced part of a ``--trace 1`` run holds them: the reader workers'
-``read/file`` (with the file's ``open``, ``tables``, ``zstd`` and
-``unpack`` seconds and its ``reads``) and ``batch/build``, and the classify
-stream's ``stream/*`` on the main thread, ``stream/results`` with its
-``consumer_s``.  All are on ``time.perf_counter``'s clock; the window is
-the recording's own (``start``, ``end``).  A program without the
-recorder, or a run with no trace, gives nothing to read.
+The port keeps them in memory (``deepbinner_tpu_torch/runner/spans.py``):
+the reader workers' ``read/file`` (with the file's ``open``, ``tables``,
+``zstd`` and ``unpack`` seconds, its ``reads``, ``samples`` and
+``unpacked``) and ``batch/build``, and the classify stream's ``stream/*``
+on the main thread, ``stream/results`` with its ``consumer_s``.  All are on
+``time.perf_counter``'s clock; a recording's window is its own (``start``,
+``end``).
+
+A ``--trace 1`` run has two recordings.  The untraced one
+(:func:`untraced`), from the window's start to just before the profiler
+opens (23 s of a 51 s window), is the harness's ``spans.start()`` and
+``spans.stop()`` with no profiler on: every metric named above reads it.
+The recorder costs about 141 µs of the main thread a batch; the profiler
+inflates what the spans time far more (the workers' 1.1–1.7 times), so
+the traced part's recording (:func:`recording`), which the classify
+stream starts itself while the profiler records, only names the traced
+window's idle gaps (its ``stream/*`` spans go into ``record.trace``).
+A program without the recorder, a run with no trace, or a recording that
+fails its check gives nothing to read.
 """
 
 from __future__ import annotations
@@ -24,6 +34,16 @@ PARSE = ("open", "tables")
 DECODE = ("zstd", "unpack")
 
 
+def _calls_are(rec, batches) -> bool:
+    """Whether ``rec`` counted, call for call, the rows of ``batches`` (the
+    calls the harness saw in the same stretch) in a window that ended."""
+    if (rec is None or not batches or rec.end is None
+            or rec.end <= rec.start):
+        return False
+    rows = [value for _at, value in rec.counters.get("call_packed/rows", ())]
+    return rows == list(batches)
+
+
 def recording(record):
     """The program's recording of the traced part of ``record``'s run, or
     None.  It is the one that followed this run's profiler only if the
@@ -31,18 +51,30 @@ def recording(record):
     call, those the harness recorded in the traced window
     (``record.step_batches``): a recording left from another run, or one
     that never started, gives nothing."""
-    if record.trace is None or not record.step_batches:
+    if record.trace is None:
         return None
     try:
         from deepbinner_tpu_torch.runner import spans
     except ImportError:
         return None
     rec = spans.last()
-    if (rec is None or not rec.followed or rec.end is None
-            or rec.end <= rec.start):
+    if rec is None or not rec.followed or not _calls_are(rec, record.step_batches):
         return None
-    rows = [value for _at, value in rec.counters.get("call_packed/rows", ())]
-    if rows != list(record.step_batches):
+    return rec
+
+
+def untraced(record):
+    """The program's recording of the untraced stretch of ``record``'s
+    run, or None.  It is the harness's own only if no profiler started it
+    and the rows of the calls it counted are, call for call, those the
+    harness recorded in that stretch (``record.untraced.batches``): a
+    recording left from another run, or one a profiler started, gives
+    nothing."""
+    stretch = record.untraced
+    if stretch is None:
+        return None
+    rec = stretch.recording
+    if rec is None or rec.followed or not _calls_are(rec, stretch.batches):
         return None
     return rec
 
@@ -87,3 +119,11 @@ def worker_work(rec) -> Optional[dict]:
         return None
     return {"busy_s": busy, "reads": reads, "parse_s": parse,
             "decode_s": decode}
+
+
+def stream_spans(rec):
+    """The window's ``stream/*`` spans as ``(start, end, name)``, but the
+    feeder's ``stream/pool_wait``, which the harness's own
+    ``bench/pool_wait`` already times from outside."""
+    return [(start, end, name) for name, start, end, *_rest in rec.window()
+            if name.startswith("stream/") and name != "stream/pool_wait"]

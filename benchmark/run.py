@@ -6,11 +6,13 @@ Prints the cell's comparison numbers beside their limits as the last lines
 of standard error, and one JSON object as the last line of standard output:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
 metrics with ``--trace 0``, its per-layer metrics with ``--trace 1``),
-``device``, with ``--trace 1`` ``breakdown``, ``k1_build_s`` (the seconds of
-set-up that K1's nvcc build took, 0.0 where it was built before), and
-``checks`` last.  Exits non-zero and prints no result where there is no
-card, fewer cards than the cell asks for, or a module of JAX or of the JAX
-package was loaded.
+``device`` (with the host's CPU model, its logical CPUs and those this
+process may use), with ``--trace 1`` ``breakdown``, ``k1_build_s`` (the
+seconds of set-up that K1's nvcc build took, 0.0 where it was built
+before), ``setup_phases`` (the seconds of each phase of set-up, which sum
+to ``setup_s``), and ``checks`` last.  Exits non-zero and prints no
+result where there is no card, fewer cards than the cell asks for, or a
+module of JAX or of the JAX package was loaded.
 """
 
 import time
@@ -70,6 +72,7 @@ def main(argv=None) -> int:
     if args.trace and out["breakdown"] is not None:
         result["breakdown"] = out["breakdown"]
     result["k1_build_s"] = out["k1_build_s"]
+    result["setup_phases"] = out["setup_phases"]
     result["checks"] = out["checks"]
     for line in harness.check_lines(out["checks"]):
         print(line, file=sys.stderr)

@@ -1,5 +1,7 @@
 """A run of a small cell on the CPU with the timed path broken underneath:
-each fault a classify cell can have turns ``correct`` false."""
+each fault a classify cell can have turns ``correct`` false, in a
+``--trace 0`` run and in a ``--trace 1`` run (its two stretches and the
+pool-only pass after its window)."""
 
 import numpy as np
 import pytest
@@ -84,3 +86,19 @@ def test_a_broken_timed_path_is_not_correct(run_small, monkeypatch, fault, faili
     assert out["correct"] is False
     check = out["checks"][failing]
     assert check["value"] > check["limit"]
+
+
+@pytest.mark.parametrize("fault,failing", [
+    (_alter_an_answer, "calls_differing"),
+    (_half_the_batch, "prob_gap"),
+    (_rows_left_out, "rows_misplaced"),
+    (_probabilities_nudged, "prob_gap"),
+])
+def test_a_broken_timed_path_is_not_correct_in_a_traced_run(
+        run_small, monkeypatch, fault, failing):
+    fault(monkeypatch)
+    out = run_small("nbd103-amplicon", seed=2 ** 31 + 18, trace=True)
+    assert out["correct"] is False
+    check = out["checks"][failing]
+    assert check["value"] > check["limit"]
+    assert out["record"].pool_reads_per_s > 0

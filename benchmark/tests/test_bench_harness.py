@@ -125,15 +125,19 @@ def test_readers_of_a_record():
                for k in range(15)]
     trace = Trace(kernels + [(20000.0, 20100.0, "Memcpy HtoD")],
                   [(0.0, 30000.0, "bench/call")])
+    untraced = harness.Untraced(seconds=20.0, pool_wait_s=8.0,
+                                recording=None, batches=[])
     record = harness.Record(seconds=10.0, setup_s=12.5, rows=50_000,
                             pool_wait_s=4.0, windows_per_read=11, ends=2,
                             network=network, trace=trace, trace_window_s=0.05,
-                            k1_launches=units, step_batches=[256, 256])
+                            k1_launches=units, step_batches=[256, 256],
+                            untraced=untraced, pool_reads_per_s=61234.5)
     read = {name: harness.reader(name).read(record) for name in
             ("reads_per_s", "setup_s", "reader_wait_share", "step_mfu",
-             "k1_roofline", "device_idle_share")}
+             "k1_roofline", "device_idle_share", "pool_reads_per_s")}
     assert read["reads_per_s"] == 5000.0 and read["setup_s"] == 12.5
     assert read["reader_wait_share"] == pytest.approx(40.0)
+    assert read["pool_reads_per_s"] == 61234.5
     assert read["step_mfu"] == pytest.approx(
         100 * 512 * 22 * flops.forward_flops_per_window(network) / 7600e-6 / 67e12)
     assert read["k1_roofline"] == pytest.approx(
@@ -149,6 +153,10 @@ def test_readers_of_a_record():
     assert harness.reader("step_mfu").read(record) is None
     assert harness.reader("device_idle_share").read(record) is None
     assert harness.reader("k1_roofline").read(record) is None
+    # No untraced stretch, no pool-only pass: nothing.
+    record.untraced = record.pool_reads_per_s = None
+    assert harness.reader("reader_wait_share").read(record) is None
+    assert harness.reader("pool_reads_per_s").read(record) is None
 
 
 def test_idle_gaps_are_named_by_the_open_annotations():

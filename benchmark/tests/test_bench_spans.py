@@ -1,7 +1,8 @@
 """The per-layer metrics that read the program's own spans: on synthetic
 spans, with nothing to read, and in a traced run of a small cell on the
 CPU, where the program's ``stream/pool_wait`` must measure what the
-harness's ``pool_wait_s`` measures from outside."""
+harness's pool waits measure from outside, over the window and over the
+untraced stretch of a ``--trace 1`` run."""
 
 import time
 
@@ -13,20 +14,23 @@ SIX = ("worker_ms_per_read", "worker_decode_share", "worker_parse_share",
        "enqueue_share", "result_share", "consumer_share")
 
 
-def _record(trace, step_batches=(256, 256)):
+def _record(rec, batches=(256, 256)):
+    """A record whose untraced stretch has the recording ``rec`` (None:
+    a run with no untraced stretch)."""
     from benchmark import harness
 
+    untraced = (None if rec is None else harness.Untraced(
+        seconds=2.0, pool_wait_s=0.5, recording=rec, batches=list(batches)))
     return harness.Record(seconds=10.0, setup_s=1.0, rows=1, pool_wait_s=0.0,
-                          windows_per_read=11, ends=1, network={}, trace=trace,
-                          trace_window_s=2.0, step_batches=list(step_batches))
+                          windows_per_read=11, ends=1, network={},
+                          untraced=untraced)
 
 
-def test_readers_of_the_programs_spans(monkeypatch):
+def test_readers_of_the_programs_spans():
     from benchmark import harness
-    from benchmark.trace import Trace
     from deepbinner_tpu_torch.runner import spans
 
-    rec = spans.Recording(100.0, followed=True)
+    rec = spans.Recording(100.0)
     rec.end = 102.0
     rec.counters["call_packed/rows"] += [(100.45, 256), (101.2, 256)]
     pod5 = {"open": 0.01, "tables": 0.03, "zstd": 0.1, "unpack": 0.06,
@@ -44,8 +48,7 @@ def test_readers_of_the_programs_spans(monkeypatch):
             ("stream/copy_back", 100.6, 100.7, {}),
             ("stream/results", 100.7, 101.1, {"consumer_s": 0.3})):
         rec.add(name, start, end, (0, 0), **args)
-    monkeypatch.setattr(spans, "last", lambda: rec)
-    record = _record(Trace([], []))
+    record = _record(rec)
     read = {name: harness.reader(name).read(record) for name in SIX}
     assert read["worker_ms_per_read"] == pytest.approx(1e3 * 0.25 / 100)
     assert read["worker_decode_share"] == pytest.approx(100 * 0.16 / 0.25)
@@ -53,33 +56,39 @@ def test_readers_of_the_programs_spans(monkeypatch):
     assert read["enqueue_share"] == pytest.approx(100 * 0.12 / 2.0)
     assert read["result_share"] == pytest.approx(100 * 0.1 / 2.0)
     assert read["consumer_share"] == pytest.approx(100 * 0.3 / 2.0)
-    # No trace, no recording, or a recording with no such span: nothing.
+    assert harness.reader("reader_wait_share").read(record) == pytest.approx(25.0)
+    # No untraced stretch, or one with no recording: nothing.
     assert all(harness.reader(n).read(_record(None)) is None for n in SIX)
-    # A recording whose calls are not the traced window's (another run's),
-    # or one that did not follow the run's profiler: nothing.
-    for other in (_record(Trace([], []), (256,)),
-                  _record(Trace([], []), (256, 128)),
-                  _record(Trace([], []), ())):
+    record.untraced.recording = None
+    assert all(harness.reader(n).read(record) is None for n in SIX)
+    # A recording whose calls are not the stretch's (another run's): nothing.
+    for other in (_record(rec, (256,)), _record(rec, (256, 128)),
+                  _record(rec, ())):
         assert all(harness.reader(n).read(other) is None for n in SIX)
-    rec.followed = False
-    assert all(harness.reader(n).read(record) is None for n in SIX)
-    monkeypatch.setattr(spans, "last", lambda: None)
-    assert all(harness.reader(n).read(record) is None for n in SIX)
-    empty = spans.Recording(100.0, followed=True)
+    # One that a profiler started, or one still recording: nothing.
+    rec.followed = True
+    assert all(harness.reader(n).read(_record(rec)) is None for n in SIX)
+    rec.followed, rec.end = False, None
+    assert all(harness.reader(n).read(_record(rec)) is None for n in SIX)
+    # A recording with no such span: nothing.
+    empty = spans.Recording(100.0)
     empty.end = 102.0
     empty.counters["call_packed/rows"] += [(100.5, 256), (101.0, 256)]
-    monkeypatch.setattr(spans, "last", lambda: empty)
-    assert all(harness.reader(n).read(record) is None for n in SIX)
+    assert all(harness.reader(n).read(_record(empty)) is None for n in SIX)
 
 
 def test_a_program_without_the_recorder_gives_nothing(monkeypatch):
+    """No recording of the traced part to name its idle gaps with, and no
+    untraced stretch to read."""
     import sys
 
-    from benchmark import harness
+    from benchmark import harness, program_spans
     from benchmark.trace import Trace
 
     monkeypatch.setitem(sys.modules, "deepbinner_tpu_torch.runner.spans", None)
-    record = _record(Trace([], []))
+    record = _record(None)
+    record.trace, record.step_batches = Trace([], []), [256, 256]
+    assert program_spans.recording(record) is None
     assert all(harness.reader(n).read(record) is None for n in SIX)
 
 
@@ -112,23 +121,36 @@ def test_a_traced_run_reports_the_six_in_range():
             + values["consumer_share"]) <= 100
 
 
-def test_the_programs_pool_wait_is_the_harness_pool_wait():
-    """The program's recorder on for the whole run: its feeder's
-    ``stream/pool_wait`` over the measured window against the harness's
-    ``pool_wait_s``, which wraps the same iterator from outside."""
+@pytest.mark.parametrize("stretch", ["window", "untraced"])
+def test_the_programs_pool_wait_is_the_harness_pool_wait(stretch):
+    """The program's feeder's ``stream/pool_wait`` against the harness's
+    pool waits, which wrap the same iterator from outside: over the
+    measured window of a ``--trace 0`` run with the program's recorder on
+    for the whole run (``pool_wait_s``), and over the untraced stretch of
+    a ``--trace 1`` run in the harness's own recording of it
+    (``untraced.pool_wait_s``, which ``reader_wait_share`` reads)."""
     from deepbinner_tpu_torch.runner import spans
 
-    spans.start()
-    try:
-        _cell, out, t0 = _run(False, 2 ** 31 + 12, 1.0)
-    finally:
-        rec = spans.stop()
-    record = out["record"]
+    if stretch == "window":
+        spans.start()
+        try:
+            _cell, out, t0 = _run(False, 2 ** 31 + 12, 1.0)
+        finally:
+            rec = spans.stop()
+        record = out["record"]
+        seconds, harness_wait = record.seconds, record.pool_wait_s
+    else:
+        _cell, out, t0 = _run(True, 2 ** 31 + 13, 6.0)
+        record = out["record"]
+        rec = record.untraced.recording
+        seconds = record.untraced.seconds
+        harness_wait = record.untraced.pool_wait_s
     begin = t0 + record.setup_s
-    end = begin + record.seconds
+    end = begin + seconds
+    # Every span the feeder added to the recording, clipped to the stretch.
     waited = sum(max(0.0, min(e, end) - max(s, begin))
-                 for name, s, e, *_rest in rec.window()
+                 for name, s, e, *_rest in rec.spans
                  if name == "stream/pool_wait")
-    assert record.pool_wait_s > 0
-    assert abs(waited - record.pool_wait_s) <= max(
-        0.005, 0.05 * record.pool_wait_s), (waited, record.pool_wait_s)
+    assert harness_wait > 0
+    assert abs(waited - harness_wait) <= max(
+        0.005, 0.05 * harness_wait), (waited, harness_wait)

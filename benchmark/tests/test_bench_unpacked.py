@@ -1,7 +1,7 @@
-"""``worker_unpacked_share``: on a hand-made recording, with nothing to
-read (no ``read/file`` span, or spans without the two counts, as a
-program from before them records), and in a traced run of a small cell
-on the CPU."""
+"""``worker_unpacked_share``: on a hand-made recording of the untraced
+stretch, with nothing to read (no such stretch, no ``read/file`` span,
+or spans without the two counts, as a program from before them
+records), and in a traced run of a small cell on the CPU."""
 
 import time
 
@@ -12,18 +12,22 @@ from conftest import CPU_ARGS, small_cell
 NAME = "worker_unpacked_share"
 
 
-def _record(trace, step_batches=(256, 256)):
+def _record(rec):
+    """A record whose untraced stretch has the recording ``rec`` (None:
+    a run with no untraced stretch)."""
     from benchmark import harness
 
+    untraced = (None if rec is None else harness.Untraced(
+        seconds=2.0, pool_wait_s=0.0, recording=rec, batches=[256, 256]))
     return harness.Record(seconds=10.0, setup_s=1.0, rows=1, pool_wait_s=0.0,
-                          windows_per_read=11, ends=1, network={}, trace=trace,
-                          trace_window_s=2.0, step_batches=list(step_batches))
+                          windows_per_read=11, ends=1, network={},
+                          untraced=untraced)
 
 
 def _recording(files):
     from deepbinner_tpu_torch.runner import spans
 
-    rec = spans.Recording(100.0, followed=True)
+    rec = spans.Recording(100.0)
     rec.end = 102.0
     rec.counters["call_packed/rows"] += [(100.45, 256), (101.2, 256)]
     rec.spans.extend(files)
@@ -32,13 +36,10 @@ def _recording(files):
     return rec
 
 
-def test_the_share_of_samples_unpacked(monkeypatch):
+def test_the_share_of_samples_unpacked():
     from benchmark import harness
-    from benchmark.trace import Trace
-    from deepbinner_tpu_torch.runner import spans
 
     reader = harness.reader(NAME)
-    record = _record(Trace([], []))
     counts = {"zstd": 0.1, "unpack": 0.02, "chunks": 3}
     rec = _recording([
         ("read/file", 100.1, 100.3, 9, 9, (0, 0),
@@ -49,17 +50,12 @@ def test_the_share_of_samples_unpacked(monkeypatch):
         ("read/file", 101.9, 102.2, 9, 9, (0, 1),
          dict(counts, reads=1, samples=100_000, unpacked=1)),
     ])
-    monkeypatch.setattr(spans, "last", lambda: rec)
-    assert reader.read(record) == pytest.approx(100.0 * 130_000 / 400_000)
-    assert reader.read(_record(None)) is None  # no trace
+    assert reader.read(_record(rec)) == pytest.approx(100.0 * 130_000 / 400_000)
+    assert reader.read(_record(None)) is None  # no untraced stretch
     # No read/file span; spans without the counts (an older program's).
     for files in ([], [("read/file", 100.1, 100.3, 9, 9, (0, 0),
                         dict(counts, reads=2))]):
-        empty = _recording(files)
-        monkeypatch.setattr(spans, "last", lambda empty=empty: empty)
-        assert reader.read(record) is None
-    monkeypatch.setattr(spans, "last", lambda: None)
-    assert reader.read(record) is None
+        assert reader.read(_record(_recording(files))) is None
 
 
 def test_a_traced_run_reports_the_share():

@@ -3,8 +3,10 @@
 Device activity is every event of the categories ``kernel``,
 ``gpu_memcpy`` and ``gpu_memset``; the host's are the ``bench/*``
 annotations ``classify.py`` puts around its calls into the stream's layers
-(``record_function``, category ``user_annotation``).  Times in the trace
-are microseconds on one clock for the host and the device.
+(``record_function``, category ``user_annotation``), and the host spans
+added to them: the harness's ``bench/pool_wait`` and the program's
+``stream/*``.  Times in the trace are microseconds on one clock for the
+host and the device.
 """
 
 from __future__ import annotations
@@ -23,17 +25,16 @@ class Trace:
     device: List[Tuple[float, float, str]]   # (start µs, end µs, name)
     annotations: List[Tuple[float, float, str]]
 
-    def add_host_spans(self, spans, clock: float, anchor: str,
-                       name: str) -> None:
-        """Add ``(start, end)`` spans on ``time.perf_counter``'s clock as
-        annotations ``name``; ``clock`` is the perf_counter reading taken
-        inside the annotation ``anchor``."""
+    def add_host_spans(self, spans, clock: float, anchor: str) -> None:
+        """Add ``(start, end, name)`` spans on ``time.perf_counter``'s clock
+        as annotations; ``clock`` is the perf_counter reading taken inside
+        the annotation ``anchor``."""
         marks = [(a + b) / 2 for a, b, n in self.annotations if n == anchor]
         if not marks:
             return
         offset = marks[0] - clock * 1e6
         self.annotations += [(start * 1e6 + offset, end * 1e6 + offset, name)
-                             for start, end in spans]
+                             for start, end, name in spans]
 
     def kernels(self, fragment: str) -> List[Tuple[float, float, str]]:
         """Device kernels whose name holds ``fragment``, in start order."""
@@ -61,8 +62,8 @@ class Trace:
 
     def idle_gaps(self, count: int = 10) -> List[list]:
         """Device idle time between operations, summed by what the host
-        was inside at each gap's middle (the ``bench/*`` annotations open
-        there, or ``host: other``)."""
+        was inside at each gap's middle (the annotations and host spans
+        open there, or ``host: other``)."""
         merged = self._merged()
         gaps = [(b_start, a_end) for (_s, a_end), (b_start, _e)
                 in zip(merged, merged[1:])]
